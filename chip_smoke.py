@@ -14,15 +14,27 @@ Phases, each printed as it runs:
    k = 100, M in {256, 1024, 2048, 4096}, random prefix lengths including one
    below k and one of 0): max score error, id agreement under the near-tie
    rule, and the kernel's, the plain version's and the bound's times;
+   The same phase checks that the kernel's output on a fixed input is bit
+   for bit what it was before its device code moved into
+   ``csrc/twin_score.cuh`` (``PQT_DIGEST``);
 4. ``serve_split`` end to end on the realistic synthetic split (128-1024
    nodes, ~3 extra edges per node, 16384 entities, 64 relations, seed 7,
    D = 1024, k = 100): launch counts, the top-k of every question held to
    the same split served through the plain version on the card (near-tie
    rule on the plain version's full rankings), recall@{10,100} of both, q/s
-   and the phase breakdown; a traced serve pass (torch.profiler) gives the
-   device time by kernel and the busy share of that pass;
+   and the phase breakdown, bf16-representable scores, and a second timed
+   pass that gives bitwise the same ids and scores; a traced serve pass
+   (torch.profiler) gives the device time by kernel and the busy share of
+   that pass;
 5. the ``serve`` CLI task on a small synthetic config with a checkpoint in
-   the port's format written here (under ``chiprun_out/``).
+   the port's format written here (under ``chiprun_out/``);
+6. the pooled query at ``bench.py``'s headline (131,072 candidates, 128
+   queries, D = H = 1024, S = 20, k = 100): ``build_triple_index`` on the
+   card from a 262,144-row entity table and a 1,024-row relation table,
+   then the bf16 index through ``query_topk_per_query`` (kernel 1) and
+   ``query_topk_fused`` (kernel 2), q/s as the median of 3 warm passes;
+   8 queries held to each kernel's plain version's full score rows; each
+   kernel's ms per launch, bound and plain version's ms.
 
 Then a line ``{"kernels": [...]}``, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero without
@@ -58,6 +70,10 @@ ATOL = 5e-3
 TIE_TOL = 5e-3             # ids may swap only where the plain scores are this close
 MAX_SWAPPED = 8            # questions of the serve whose top-k may differ by such swaps
 FULL_RANK = 4096           # >= the largest bucket of the realistic split (max 3182 edges)
+POOLED_M = 131072          # bench.py's headline pooled query
+POOLED_B = 128
+POOLED_CHECK = 8           # queries held to the plain versions' full score rows
+ENTITIES, RELATIONS = 262144, 1024
 
 
 def log(msg: str) -> None:
@@ -98,6 +114,20 @@ def make_bundle(dim: int, hidden: int, struct_dim: int, seed: int = 0):
     return {"features": feats, "parity_meta": parity}
 
 
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    import math
+
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x != 0 else 0.0
+
+
+def reset_launches() -> None:
+    from evi_rag_tpu_torch.ops import score_kernels as sk
+
+    for fn in (sk.per_question_topk, sk.score_bidirectional, sk.query_topk_fused):
+        fn.launches = 0
+
+
 def cuda_ms(fn, iters: int) -> float:
     import torch
 
@@ -112,6 +142,18 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def roofline(bytes_: float, tc_flops: float, f32_flops: float) -> tuple[float, str]:
+    """(least ms, what bounds it): bytes at the memory rate against
+    operations at the peak rate of their type."""
+    t_bytes = bytes_ / PEAK_BYTES
+    t_ops = max(tc_flops / PEAK_BF16_FLOPS, f32_flops / PEAK_F32_FLOPS)
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations")
+
+
+def weight_bytes(d: int, h: int, s: int) -> int:
+    return 3 * d * h * 2 + 6 * h * 4 + s * d * 4 + 5 * d * 4
+
+
 def kernel_bound(lengths, m: int, d: int, h: int, s: int, k: int) -> tuple[float, str]:
     """Least time for the work of this input: each needed input byte read
     once (rows of valid edges, the weights, the questions), each output byte
@@ -119,13 +161,35 @@ def kernel_bound(lengths, m: int, d: int, h: int, s: int, k: int) -> tuple[float
     edges = int(sum(min(int(n), m) for n in lengths))
     g = len(lengths)
     bytes_ = (edges * (3 * d * 2 + s * 2)                       # h, r, t, struct rows (bf16)
-              + 3 * d * h * 2 + 6 * h * 4 + s * d * 4 + 5 * d * 4  # weights
+              + weight_bytes(d, h, s)
               + g * (d * 4 + 4) + g * k * 8)                     # questions, lengths, vals + ids
     tc_flops = edges * 2 * 3 * 2 * d * h                        # [inter|sc|err] @ W1, two directions
     f32_flops = edges * 2 * (2 * s * d + 12 * d + 12 * h)       # struct proj, LNs, GELUs, products
-    t_bytes = bytes_ / PEAK_BYTES
-    t_ops = max(tc_flops / PEAK_BF16_FLOPS, f32_flops / PEAK_F32_FLOPS)
-    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations")
+    return roofline(bytes_, tc_flops, f32_flops)
+
+
+def pooled_bounds(b: int, m: int, d: int, h: int, s: int, k: int) -> dict[str, tuple[float, str]]:
+    """Least time of one launch of each pooled kernel over b queries and m
+    shared candidates.  Inputs: the bf16 index rows once, the weights, the
+    queries; outputs: kernel 1's [b, m] f32 scores, kernel 2's [b, k] values
+    and ids.  Operations: what depends on the query once per (edge, query),
+    what does not once per edge.  Kernel 1 per (edge, query): inter @ W1i
+    and err @ W1e in two directions (8.4 MFLOP at D = H = 1024); per edge:
+    the struct projection and sc @ W1s in two directions.  Kernel 2 per
+    (edge, query): u @ W1i and r_ctx @ W1e; per edge: hmt @ W1e and
+    [sc_f; sc_b] @ W1s.  Elementwise work is counted at ~12 operations per D
+    or H element."""
+    rows = m * (3 * d * 2 + s * 2) + weight_bytes(d, h, s) + b * d * 4
+    pairs = b * m
+    per_edge_f32 = m * 2 * (2 * s * d + 12 * d)                  # struct projection, LN, GELU, nav
+    return {
+        "score_bidirectional": roofline(
+            rows + pairs * 4, pairs * 2 * 2 * 2 * d * h + m * 2 * 2 * d * h,
+            per_edge_f32 + pairs * 2 * (12 * d + 12 * h)),
+        "query_topk_fused": roofline(
+            rows + b * k * 8, pairs * 2 * 2 * d * h + m * 3 * 2 * d * h,
+            per_edge_f32 + pairs * (12 * d + 2 * 12 * h)),
+    }
 
 
 def phase_device():
@@ -147,13 +211,15 @@ def phase_build():
     from evi_rag_tpu_torch.ops import _build, score_kernels
 
     t0 = time.perf_counter()
-    _build.load_library(score_kernels.KERNEL_SOURCE)
+    _build.build(list(score_kernels.KERNEL_SOURCES))  # one nvcc per source, all at once
+    for source in score_kernels.KERNEL_SOURCES:
+        _build.load_library(source)
     build_s = time.perf_counter() - t0
-    report = [ln.strip() for ln in _build.BUILD_LOG.get(score_kernels.KERNEL_SOURCE, "").splitlines()
-              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-    log(f"[2 build] {score_kernels.KERNEL_SOURCE} built and loaded in {build_s:.2f} s")
-    for ln in report:
-        log(f"[2 build]   {ln}")
+    log(f"[2 build] {', '.join(score_kernels.KERNEL_SOURCES)} built and loaded in {build_s:.2f} s")
+    for source in score_kernels.KERNEL_SOURCES:
+        for ln in _build.BUILD_LOG.get(source, "").splitlines():
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+                log(f"[2 build]   {source}: {ln.strip()}")
     return build_s
 
 
@@ -219,6 +285,12 @@ def phase_kernel(bundle_np, seed: int = 5):
             f"(tol {ATOL}) near_tie_swaps={swaps} ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"bound_ms={bound_ms:.4f} ({bound_by}) bound/ms={bound_ms / ms:.3f}")
         del h, r, t, struct, scores
+    from evi_rag_tpu_torch.testing import PQT_DIGEST, pqt_digest
+
+    digest = pqt_digest(dev)
+    if digest != PQT_DIGEST:
+        raise AssertionError(f"per_question_topk output changed: digest {digest} != {PQT_DIGEST}")
+    log(f"[3 kernel] output on the fixed input is bit for bit the pre-header kernel's (sha256 {digest[:16]}...)")
     return rows
 
 
@@ -244,7 +316,7 @@ def phase_serve(bundle_np, num_questions: int):
     kw = dict(entity_emb=ds.entity_emb, relation_emb=ds.relation_emb, question_emb=ds.question_emb,
               k=K, num_rounds=2, num_reverse_rounds=2, projected=projected, device="cuda")
     serve_split(bundle, ds.samples, **kw)  # first pass: allocator and library warm
-    sk.per_question_topk.launches = 0
+    reset_launches()
     results, stats = serve_split(bundle, ds.samples, **kw)
     launches = sk.per_question_topk.launches
     # Every bucket of this split has m_pad >= 256: one launch per group, and
@@ -257,9 +329,18 @@ def phase_serve(bundle_np, num_questions: int):
     ):
         raise AssertionError("a question got no (or a short) answer")
     passes = [stats]
-    for _ in range(2):
-        passes.append(serve_split(bundle, ds.samples, **kw)[1])
+    again, stats2 = serve_split(bundle, ds.samples, **kw)
+    passes.append(stats2)
+    passes.append(serve_split(bundle, ds.samples, **kw)[1])
     qps = sorted(p.queries_per_s for p in passes)
+    for a, b in zip(results, again):
+        if not (np.array_equal(a.edge_ids, b.edge_ids) and np.array_equal(a.scores, b.scores)):
+            raise AssertionError(f"{a.sample_id}: a second serve pass gave other ids or score bits")
+    scores = np.concatenate([r.scores for r in results])
+    if not np.array_equal(scores, torch.as_tensor(scores).to(torch.bfloat16).float().numpy()):
+        raise AssertionError("served scores are not bf16 values under bf16 compute")
+    log(f"[4 serve] a second timed pass gave bitwise the same ids and scores for all {len(results)} "
+        f"questions; all {scores.size} served scores are bf16 values")
     log(f"[4 serve] kernel launches in one serve_split: {launches} "
         f"({stats.num_groups} groups + 1 warmup launch that scores no edge)")
     log(f"[4 serve] q/s per pass {qps} median {qps[1]}; stats {stats}")
@@ -305,8 +386,9 @@ def check_against_plain(samples, results, full):
     """Hold the kernel serve's top-k to the plain-version serve's full
     rankings: ids valid and distinct, scores within ATOL of the plain score
     of the same edge, and every id in one top-k but not the other within
-    TIE_TOL of the plain k-th score.  At most MAX_SWAPPED questions may
-    differ.  Returns (the plain serve cut to its top k, swapped questions,
+    TIE_TOL of the plain k-th score.  Both serves round their scores to
+    bf16, so each bound is at least one bf16 ulp of the plain score.  At
+    most MAX_SWAPPED questions may differ.  Returns (the plain serve cut to its top k, swapped questions,
     max score error)."""
     by_id = {r.sample_id: r for r in full}
     edges = {s.sample_id: s.edge_index.shape[1] for s in samples}
@@ -324,13 +406,14 @@ def check_against_plain(samples, results, full):
         got = r.edge_ids.tolist()
         if len(set(got)) != n or any(e not in score_of for e in got):
             raise AssertionError(f"{r.sample_id}: ids out of range or repeated")
-        err = max(abs(score_of[e] - v) for e, v in zip(got, r.scores.tolist()))
-        if err > ATOL:
-            raise AssertionError(f"{r.sample_id}: score error {err:.3e} > {ATOL}")
-        max_err = max(max_err, err)
+        for e, v in zip(got, r.scores.tolist()):
+            err = abs(score_of[e] - v)
+            if err > max(ATOL, bf16_ulp(score_of[e])):
+                raise AssertionError(f"{r.sample_id}: score error {err:.3e} at {e} > max({ATOL}, 1 bf16 ulp)")
+            max_err = max(max_err, err)
         kth = float(f.scores[n - 1])
         diff = set(got) ^ set(f.edge_ids[:n].tolist())
-        far = [e for e in diff if abs(score_of[e] - kth) > TIE_TOL]
+        far = [e for e in diff if abs(score_of[e] - kth) > max(TIE_TOL, bf16_ulp(kth))]
         if far:
             raise AssertionError(f"{r.sample_id}: ids {far} differ beyond the near-tie rule")
         swapped += bool(diff)
@@ -408,6 +491,122 @@ def phase_cli():
     return m
 
 
+def hold_to_plain(vals, ids, plain, k: int) -> tuple[float, int]:
+    """Hold a kernel's top-k rows to its plain version's full score rows:
+    ids distinct and in range, values within ATOL of the plain score of the
+    same id, sorted, and every id in one top-k but not the other within
+    TIE_TOL of the plain k-th score.  Returns (max abs error, differing ids)."""
+    import numpy as np
+
+    v, i, s = vals.cpu().numpy(), ids.cpu().numpy(), plain.cpu().numpy()
+    max_err, differing = 0.0, 0
+    for b in range(v.shape[0]):
+        if len(set(i[b].tolist())) != k or i[b].min() < 0 or i[b].max() >= s.shape[1]:
+            raise AssertionError(f"query {b}: ids out of range or repeated")
+        if (np.diff(v[b]) > 0).any():
+            raise AssertionError(f"query {b}: values not sorted descending")
+        max_err = max(max_err, float(np.abs(v[b] - s[b, i[b]]).max()))
+        want = np.argsort(-s[b], kind="stable")[:k]
+        kth = s[b, want[-1]]
+        diff = set(i[b].tolist()) ^ set(want.tolist())
+        far = [e for e in diff if abs(s[b, e] - kth) > TIE_TOL]
+        if far:
+            raise AssertionError(f"query {b}: ids {far} differ beyond the near-tie rule")
+        differing += len(diff) // 2
+    if max_err > ATOL:
+        raise AssertionError(f"max score error {max_err:.3e} > {ATOL}")
+    return max_err, differing
+
+
+def phase_pooled(bundle_np):
+    import torch
+
+    from evi_rag_tpu_torch.ops import score_kernels as sk
+    from evi_rag_tpu_torch.ops.query import build_triple_index
+    from evi_rag_tpu_torch.train.checkpoint import bundle_from_numpy
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    bundle = {"features": bundle_from_numpy(bundle_np["features"], device=dev)}
+    gen = torch.Generator(device=dev).manual_seed(13)
+    tables = dict(
+        entity_emb=torch.randn(ENTITIES, D, device=dev, generator=gen),
+        relation_emb=torch.randn(RELATIONS, D, device=dev, generator=gen),
+        nontext_mask=torch.rand(ENTITIES, device=dev, generator=gen) < 0.01,
+        heads=torch.randint(0, ENTITIES, (POOLED_M,), device=dev, generator=gen),
+        rels=torch.randint(0, RELATIONS, (POOLED_M,), device=dev, generator=gen),
+        tails=torch.randint(0, ENTITIES, (POOLED_M,), device=dev, generator=gen),
+        struct_raw=torch.randn(POOLED_M, S, device=dev, generator=gen),
+    )
+    q = torch.randn(POOLED_B, D, device=dev, generator=gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = build_triple_index(bundle, **tables, device=dev)
+    torch.cuda.synchronize()
+    index_build_s = time.perf_counter() - t0
+    del tables
+    idx = index.to(dtype=torch.bfloat16)  # cast once, as bench.py's index_dtype=bf16
+    del index
+    w = sk.prep_weights(bundle["features"])
+    log(f"[6 pooled] index: {POOLED_M} triples over {ENTITIES} entities / {RELATIONS} relations, "
+        f"D = {D}, built on the card in index_build_s {index_build_s:.4f}")
+
+    # The main path: counts at 0, a first (warm) pass and 3 timed passes of each engine.
+    paths = {"per_query": sk.query_topk_per_query, "fused": sk.query_topk_fused}
+    reset_launches()
+    out, qps = {}, {}
+    for name, fn in paths.items():
+        out[name] = fn(bundle, q, idx, k=K, weights=w)
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out[name] = fn(bundle, q, idx, k=K, weights=w)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        qps[name] = sorted(POOLED_B / x for x in walls)
+    launches = {"score_bidirectional": sk.score_bidirectional.launches,
+                "query_topk_fused": sk.query_topk_fused.launches}
+    if min(launches.values()) <= 0 or sk.per_question_topk.launches:
+        raise AssertionError(f"the pooled paths' kernel launches are {launches}")
+    for name in paths:
+        log(f"[6 pooled] {name}: q/s per pass {[round(x, 2) for x in qps[name]]} median {qps[name][1]:.2f}")
+    log(f"[6 pooled] launches in the driven run (1 + 3 passes per path): {launches}")
+
+    # Checks: POOLED_CHECK queries against each kernel's plain version.
+    nq = POOLED_CHECK
+    rows_args = (idx.head_repr, idx.rel_repr, idx.tail_repr, idx.struct_raw)
+    plain1 = sk.score_bidirectional_reference(bundle, q[:nq], *rows_args, weights=w)
+    plain2 = sk.fused_scores_reference(bundle, q[:nq], *rows_args, weights=w)
+    err1, diff1 = hold_to_plain(out["per_query"][0][:nq], out["per_query"][1][:nq], plain1, K)
+    err2, diff2 = hold_to_plain(out["fused"][0][:nq], out["fused"][1][:nq], plain2, K)
+    dense = sk.score_bidirectional(bundle, q[:nq], *rows_args, weights=w)
+    dense_err = float((dense - plain1).abs().max())
+    if dense_err > ATOL:
+        raise AssertionError(f"kernel 1's dense scores: max error {dense_err:.3e} > {ATOL}")
+    log(f"[6 pooled] {nq} queries vs plain full rows: kernel 1 top-k max_abs_err {err1:.3e} "
+        f"(dense [{nq}, {POOLED_M}] {dense_err:.3e}), differing ids {diff1}; kernel 2 max_abs_err "
+        f"{err2:.3e}, differing ids {diff2} (tol {ATOL}, near-tie {TIE_TOL})")
+    del plain1, plain2, dense
+
+    # Times of one launch over all POOLED_B queries, and of the plain versions' same work.
+    ms = {"score_bidirectional": cuda_ms(lambda: sk.score_bidirectional(bundle, q, *rows_args, weights=w), 2),
+          "query_topk_fused": cuda_ms(lambda: sk.query_topk_fused(bundle, q, idx, k=K, weights=w), 2)}
+    plain_ms = {
+        "score_bidirectional": cuda_ms(
+            lambda: sk.score_bidirectional_reference(bundle, q, *rows_args, weights=w), 1),
+        "query_topk_fused": cuda_ms(lambda: sk.query_topk_fused_reference(bundle, q, idx, k=K, weights=w), 1),
+    }
+    bounds = pooled_bounds(POOLED_B, POOLED_M, D, H, S, K)
+    for name in ms:
+        log(f"[6 pooled] {name}: ms {ms[name]:.3f} per launch (B = {POOLED_B}) bound_ms "
+            f"{bounds[name][0]:.3f} ({bounds[name][1]}) bound/ms {bounds[name][0] / ms[name]:.3f} "
+            f"plain_ms {plain_ms[name]:.3f}")
+    return dict(index_build_s=index_build_s, qps=qps, launches=launches, ms=ms, plain_ms=plain_ms,
+                bounds=bounds, max_abs_err={"score_bidirectional": max(err1, dense_err),
+                                            "query_topk_fused": err2},
+                differing_ids={"per_query": diff1, "fused": diff2})
+
+
 def main() -> int:
     if not (ROOT / "evi_rag_tpu_torch" / "serving.py").is_file():
         print("chip_smoke: run from a checkout of the repository (evi_rag_tpu_torch/ missing)",
@@ -428,6 +627,7 @@ def main() -> int:
     rows = phase_kernel(bundle_np)
     serve = phase_serve(bundle_np, QUESTIONS)
     cli_metrics = phase_cli()
+    pooled = phase_pooled(bundle_np)
 
     rep = next(r for r in rows if r["M"] == REPORT_M)
     kernels = [{
@@ -446,8 +646,25 @@ def main() -> int:
         "library_ms": None,
         "shape": f"G={G} M={REPORT_M} D={D} H={H} S={S} k={K}",
     }]
+    replaces = {"score_bidirectional": 104, "query_topk_fused": 290}
+    sources = {"score_bidirectional": "score_bidirectional.cu", "query_topk_fused": "pooled_query.cu"}
+    for name in ("score_bidirectional", "query_topk_fused"):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"evi_rag_tpu_torch/csrc/{sources[name]}",
+            "replaces": f"evi_rag_tpu/ops/pallas_score.py:{replaces[name]}",
+            "launches": pooled["launches"][name],
+            "max_abs_err": pooled["max_abs_err"][name],
+            "ms": pooled["ms"][name],
+            "plain_ms": pooled["plain_ms"][name],
+            "bound_ms": pooled["bounds"][name][0],
+            "bound_by": pooled["bounds"][name][1],
+            "library_ms": None,
+            "shape": f"B={POOLED_B} M={POOLED_M} D={D} H={H} S={S} k={K}",
+        })
     details = dict(nvidia_smi=smi, build_s=build_s, kernel=rows, serve=serve, cli=cli_metrics,
-                   kernels=kernels, wall_s=time.perf_counter() - t_all)
+                   pooled=pooled, kernels=kernels, wall_s=time.perf_counter() - t_all)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(details, indent=2, default=str))
     log(f"[done] wall {details['wall_s']:.1f} s; details in chiprun_out/chip_smoke.json")
     log(json.dumps({"kernels": kernels}))

@@ -4,14 +4,18 @@ The JAX package stays the reference; this package mirrors its module paths
 and function names so each counterpart is easy to find.  It imports
 ``torch`` and numpy only, never JAX or anything of ``evi_rag_tpu``.
 
-What is ported so far is the serving path (``serve`` task):
+What is ported so far is the serving path (``serve`` task) and the pooled
+index-and-query engine:
 
 * ``ops.nnfn`` / ``ops.segment`` / ``models.dde`` -- the frozen-feature
   primitives and the parameter-free DDE struct features;
-* ``ops.query`` -- the plain PyTorch per-question scorer and top-k;
-* ``ops.score_kernels`` -- the wrapper of the hand-written Hopper kernel
-  (``csrc/per_question_topk.cu``) that replaces the Pallas kernel
-  ``_per_question_topk_kernel``, with its plain PyTorch version;
+* ``ops.query`` -- the plain PyTorch scorers: the per-question top-k, and
+  the pooled engine (``TripleIndex``, ``build_triple_index``,
+  ``query_topk``, ``score_all``);
+* ``ops.score_kernels`` -- the wrappers of the hand-written Hopper kernels
+  that replace the three Pallas kernels (``csrc/per_question_topk.cu``,
+  ``csrc/score_bidirectional.cu``, ``csrc/pooled_query.cu``, sharing
+  ``csrc/twin_score.cuh``), each with its plain PyTorch version;
 * ``serving`` / ``cli`` -- the split-serving engine and the ``serve`` task.
 
 Entry points run on ``cuda`` unless the caller asks for ``device="cpu"``

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from evi_rag_tpu_torch.ops.segment import segment_mean
+from evi_rag_tpu_torch.ops.segment import segment_layout, sorted_segment_mean
 
 MAX_DDE_ROUNDS = 4
 
@@ -32,18 +32,22 @@ def dde_diffuse(
     heads, tails = edge_index[0].long(), edge_index[1].long()
     num_nodes = x.shape[0]
 
-    def one_round(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
-        return segment_mean(h[src], dst, num_nodes, mask=edge_mask)
+    def direction(src: torch.Tensor, dst: torch.Tensor):
+        """The segment layout of one direction's messages, shared by its
+        rounds: (sources in sum order, lengths)."""
+        order, lengths = segment_layout(dst, num_nodes, mask=edge_mask)
+        return src[order], lengths
+
+    def one_round(h: torch.Tensor, layout) -> torch.Tensor:
+        src_sorted, lengths = layout
+        return sorted_segment_mean(h[src_sorted], lengths)
 
     outs: list[torch.Tensor] = []
-    h = x
-    for _ in range(num_rounds):
-        h = one_round(h, heads, tails)
-        outs.append(h)
-    h = x
-    for _ in range(num_reverse_rounds):
-        h = one_round(h, tails, heads)
-        outs.append(h)
+    for rounds, layout in ((num_rounds, direction(heads, tails)), (num_reverse_rounds, direction(tails, heads))):
+        h = x
+        for _ in range(rounds):
+            h = one_round(h, layout)
+            outs.append(h)
     return outs
 
 

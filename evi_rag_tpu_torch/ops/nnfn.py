@@ -14,6 +14,14 @@ import torch
 import torch.nn.functional as F
 
 
+def tree_to(tree: Any, device: torch.device) -> Any:
+    """Nested dict of numpy arrays / tensors -> the same tree of float32
+    tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return torch.as_tensor(tree, dtype=torch.float32).to(device)
+
+
 def _matmul(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     dt = torch.promote_types(x.dtype, k.dtype)
     return x.to(dt) @ k.to(dt)

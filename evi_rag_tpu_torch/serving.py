@@ -20,6 +20,8 @@ What the JAX engine did only for a remote TPU link is gone: int16 feeds,
 bf16-in-int32 result packing, padding chunks to a fixed compiled shape.
 Feeds go up from pinned host memory with ``non_blocking`` copies; each
 window's results come back the same way while the next window is dispatched.
+Under bf16 compute the scores come back rounded to bf16 (and widened to
+f32), as the JAX engine returns them; f32 requests return exact f32 scores.
 """
 
 from __future__ import annotations
@@ -34,18 +36,10 @@ import torch
 
 from evi_rag_tpu_torch.data.sample import RetrievalSample
 from evi_rag_tpu_torch.models.dde import build_node_struct_features
-from evi_rag_tpu_torch.ops.nnfn import projector as _projector
+from evi_rag_tpu_torch.ops.nnfn import projector as _projector, tree_to
 from evi_rag_tpu_torch.ops.query import query_topk_per_question
 from evi_rag_tpu_torch.ops.score_kernels import per_question_topk, prep_weights
 from evi_rag_tpu_torch.utils.device import resolve_device
-
-
-def _tree_to(tree: Any, device: torch.device) -> Any:
-    """Nested dict of numpy arrays / tensors -> the same tree of float32
-    tensors on ``device``."""
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
-    return torch.as_tensor(tree, dtype=torch.float32).to(device)
 
 
 def _sync(device: torch.device) -> None:
@@ -68,7 +62,7 @@ def project_tables(
     replaced by the projected learned non-text entity row.
     """
     dev = resolve_device(device)
-    feats = _tree_to(bundle["features"], dev)
+    feats = tree_to(bundle["features"], dev)
     parts = []
     for i in range(0, entity_emb.shape[0], chunk):
         rows = torch.from_numpy(np.array(entity_emb[i : i + chunk], dtype=np.float32)).to(dev)
@@ -173,7 +167,7 @@ class ServeResult:
     sample_id: str
     question_id: int
     edge_ids: np.ndarray    # [k'] local candidate edge ids, rank order
-    scores: np.ndarray      # [k'] f32
+    scores: np.ndarray      # [k'] f32; bf16-rounded values under bf16 compute
 
 
 @dataclasses.dataclass
@@ -237,7 +231,7 @@ def serve_split(
     dev = resolve_device(device)
     on_cuda = dev.type == "cuda"
     t0 = time.perf_counter()
-    feats = _tree_to(bundle["features"], dev)
+    feats = tree_to(bundle["features"], dev)
     bundle = {**bundle, "features": feats}
     if projected is None:
         projected = project_tables(bundle, entity_emb, relation_emb, device=dev)
@@ -378,8 +372,12 @@ def serve_split(
     t1 = time.perf_counter()
 
     def stage_window(pend):
-        """Concatenate a window's results and start their copy to the host."""
+        """Concatenate a window's results and start their copy to the host.
+        Under bf16 compute the scores ship rounded to bf16, as the JAX engine
+        ships them (the top-k order was decided on the f32 scores before)."""
         vals = torch.cat([v.reshape(-1, v.shape[-1]) for _, v, _ in pend])
+        if dtype == torch.bfloat16:
+            vals = vals.to(torch.bfloat16)
         ids = torch.cat([i.reshape(-1, i.shape[-1]) for _, _, i in pend])
         meta = [(m, v.shape[1]) for m, v, _ in pend]
         if not on_cuda:
@@ -398,7 +396,7 @@ def serve_split(
         meta, vals_h, ids_h, done = staged
         if done is not None:
             done.synchronize()
-        all_v = vals_h.numpy()
+        all_v = vals_h.float().numpy()
         all_i = ids_h.numpy()
         row = 0
         for meta_chunk, g_per in meta:

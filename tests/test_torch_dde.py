@@ -2,8 +2,8 @@
 
 Graphs carry padded, masked edges (pointing at a dump node, as serving pads
 them).  Tolerance: exact up to 1 f32 ulp (rtol 2e-7): both sides sum the same
-fractions, but JAX's dense one-hot path and ``index_add_`` may add them in
-different orders.
+fractions, but JAX's dense one-hot path and the port's sorted segment sum
+may add them in different orders.
 """
 
 import jax.numpy as jnp
@@ -59,6 +59,19 @@ def test_segment_sum_count_mean_match_jax(num_segments):
     np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
     # Masked elements contribute nothing; empty segments give 0.
     assert (t_mean(torch.as_tensor(data), torch.as_tensor(ids), num_segments)[-3:] == 0).all()
+
+
+def test_segment_sum_on_padded_dde_inputs_matches_jax(graphs):
+    """One DDE round's sum (messages from heads, summed at tails, padded
+    edges masked) matches JAX within 1 ulp, and repeats bit for bit."""
+    for topic, ei, mask in graphs:
+        msgs = topic[ei[0]]
+        want = j_sum(jnp.asarray(msgs), jnp.asarray(ei[1]), topic.shape[0], mask=jnp.asarray(mask))
+        args = (torch.as_tensor(msgs), torch.as_tensor(ei[1]), topic.shape[0])
+        got = t_sum(*args, mask=torch.as_tensor(mask))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        assert torch.equal(got, t_sum(*args, mask=torch.as_tensor(mask)))
+        assert (got[-1] == 0).all()  # the dump node receives only masked edges
 
 
 def test_dde_diffuse_matches_jax(graphs):

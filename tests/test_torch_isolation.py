@@ -70,3 +70,20 @@ def test_entry_points_raise_without_gpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.task_serve.__wrapped__({"retriever": {"ckpt": str(tmp_path)}}, run_dir=tmp_path)
     assert np.isfinite(ds.entity_emb).all()
+
+
+def test_pooled_entry_points_raise_without_gpu(monkeypatch):
+    from evi_rag_tpu_torch.ops.query import TripleIndex, build_triple_index, query_topk, score_all
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    index = TripleIndex(*(torch.zeros(4, n) for n in (8, 8, 8, 2)))
+    q = np.zeros((1, 8), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_triple_index({"features": {}}, entity_emb=np.zeros((3, 8), np.float32),
+                           relation_emb=np.zeros((2, 8), np.float32), nontext_mask=np.zeros(3, bool),
+                           heads=np.zeros(4, np.int32), rels=np.zeros(4, np.int32),
+                           tails=np.zeros(4, np.int32), struct_raw=np.zeros((4, 2), np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        query_topk({"features": {}}, q, index, k=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        score_all({"features": {}}, q, index)

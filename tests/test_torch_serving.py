@@ -95,6 +95,23 @@ def test_serve_split_bf16_matches_jax(small_ds):
     _overlap(jres, tres, slack=1, tol=0.01)
 
 
+def test_bf16_scores_come_back_rounded_to_bf16(small_ds):
+    """Under bf16 compute every served score is its own bf16 rounding, as
+    the JAX engine ships them; f32 requests keep exact f32 scores."""
+    _, tb = _bundles(3)
+    kw = dict(entity_emb=small_ds.entity_emb, relation_emb=small_ds.relation_emb,
+              question_emb=small_ds.question_emb, k=10, num_rounds=2, num_reverse_rounds=2,
+              group_size=4, device="cpu")
+    rounded = lambda x: torch.as_tensor(x).to(torch.bfloat16).float().numpy()
+    bf, _ = tserve.serve_split(tb, small_ds.samples, dtype=torch.bfloat16, **kw)
+    for r in bf:
+        assert r.scores.dtype == np.float32
+        np.testing.assert_array_equal(r.scores, rounded(r.scores))
+    f32, _ = tserve.serve_split(tb, small_ds.samples, dtype=torch.float32, **kw)
+    all_f32 = np.concatenate([r.scores for r in f32])
+    assert (all_f32 != rounded(all_f32)).mean() > 0.9
+
+
 def test_serve_split_kernel_route_matches_jax_pallas_route():
     """Buckets of 256+ edges take the kernel route in both engines (Pallas
     in interpret mode; the port's plain version on the CPU)."""
