@@ -32,9 +32,19 @@ Phases, each printed as it runs:
    queries, D = H = 1024, S = 20, k = 100): ``build_triple_index`` on the
    card from a 262,144-row entity table and a 1,024-row relation table,
    then the bf16 index through ``query_topk_per_query`` (kernel 1) and
-   ``query_topk_fused`` (kernel 2), q/s as the median of 3 warm passes;
-   8 queries held to each kernel's plain version's full score rows; each
-   kernel's ms per launch, bound and plain version's ms.
+   ``query_topk_fused`` (kernel 2), q/s as the median of 3 warm passes and
+   the phase's peak device memory; 8 queries held to each kernel's plain
+   version's full score rows; each kernel's ms per launch (scoring
+   launches and the select timed apart), achieved TFLOP/s (as the kernel
+   does the work and as the bound counts it), bound, plain version's ms,
+   and the ptxas report of the wgmma kernels.
+
+``python3 chip_smoke.py --ablation [M]`` runs only an ablation of the two
+wgmma kernels instead: each source built again with a switch of
+``csrc/twin_wgmma.cuh`` (``WG_NO_MMA``: no wgmma; ``WG_NO_EPI``: no epilogue)
+and timed against the full build at B = 128 queries over M candidates
+(default 32,768), scaled to the headline's 131,072.  The switched builds
+compute wrong scores; they only show where the time goes.
 
 Then a line ``{"kernels": [...]}``, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero without
@@ -189,6 +199,19 @@ def pooled_bounds(b: int, m: int, d: int, h: int, s: int, k: int) -> dict[str, t
         "query_topk_fused": roofline(
             rows + b * k * 8, pairs * 2 * 2 * d * h + m * 3 * 2 * d * h,
             per_edge_f32 + pairs * (12 * d + 2 * 12 * h)),
+    }
+
+
+def pooled_flops(b: int, m: int, d: int, h: int) -> dict[str, tuple[float, float]]:
+    """(tensor FLOP as the kernel does it, as the bound counts it) per
+    launch.  Kernel 1 runs [inter|sc|err] @ W1[:3D] in two directions per
+    (edge, query); kernel 2 runs u @ W1i and r_ctx @ W1e per (edge, query)
+    and [sc_f|hmt] @ [W1s; W1e] and [sc_b|-hmt] @ [W1s; W1e] per edge."""
+    pairs = b * m
+    return {
+        "score_bidirectional": (pairs * 2 * 3 * 2 * d * h, pairs * 2 * 2 * 2 * d * h + m * 2 * 2 * d * h),
+        "query_topk_fused": (pairs * 2 * 2 * d * h + m * 2 * 2 * 2 * d * h,
+                             pairs * 2 * 2 * d * h + m * 3 * 2 * d * h),
     }
 
 
@@ -552,6 +575,9 @@ def phase_pooled(bundle_np):
 
     # The main path: counts at 0, a first (warm) pass and 3 timed passes of each engine.
     paths = {"per_query": sk.query_topk_per_query, "fused": sk.query_topk_fused}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_bytes = torch.cuda.memory_allocated(dev)
     reset_launches()
     out, qps = {}, {}
     for name, fn in paths.items():
@@ -568,6 +594,9 @@ def phase_pooled(bundle_np):
                 "query_topk_fused": sk.query_topk_fused.launches}
     if min(launches.values()) <= 0 or sk.per_question_topk.launches:
         raise AssertionError(f"the pooled paths' kernel launches are {launches}")
+    peak_bytes = torch.cuda.max_memory_allocated(dev)
+    log(f"[6 pooled] peak device memory of the pooled passes {peak_bytes / 2**30:.3f} GiB "
+        f"({(peak_bytes - base_bytes) / 2**30:.3f} GiB above the index, weights and queries)")
     for name in paths:
         log(f"[6 pooled] {name}: q/s per pass {[round(x, 2) for x in qps[name]]} median {qps[name][1]:.2f}")
     log(f"[6 pooled] launches in the driven run (1 + 3 passes per path): {launches}")
@@ -588,8 +617,18 @@ def phase_pooled(bundle_np):
         f"{err2:.3e}, differing ids {diff2} (tol {ATOL}, near-tie {TIE_TOL})")
     del plain1, plain2, dense
 
-    # Times of one launch over all POOLED_B queries, and of the plain versions' same work.
-    ms = {"score_bidirectional": cuda_ms(lambda: sk.score_bidirectional(bundle, q, *rows_args, weights=w), 2),
+    # Times of one launch over all POOLED_B queries (scoring launches and the
+    # select apart), and of the plain versions' same work.
+    scores_fn = {
+        "score_bidirectional": lambda: sk.score_bidirectional(bundle, q, *rows_args, weights=w),
+        "query_topk_fused": lambda: sk._pooled_scores(sk.POOLED_SOURCE, "pq_forward", "query_topk_fused",
+                                                      bundle, q, rows_args, w, fused=True),
+    }
+    score_ms = {name: cuda_ms(fn, 2) for name, fn in scores_fn.items()}
+    dense = scores_fn["score_bidirectional"]()
+    select_ms = cuda_ms(lambda: sk._select(dense, K, "select"), 5)
+    del dense
+    ms = {"score_bidirectional": score_ms["score_bidirectional"],
           "query_topk_fused": cuda_ms(lambda: sk.query_topk_fused(bundle, q, idx, k=K, weights=w), 2)}
     plain_ms = {
         "score_bidirectional": cuda_ms(
@@ -597,14 +636,83 @@ def phase_pooled(bundle_np):
         "query_topk_fused": cuda_ms(lambda: sk.query_topk_fused_reference(bundle, q, idx, k=K, weights=w), 1),
     }
     bounds = pooled_bounds(POOLED_B, POOLED_M, D, H, S, K)
+    flops = pooled_flops(POOLED_B, POOLED_M, D, H)
+    tflops = {name: (flops[name][0] / score_ms[name] / 1e9, flops[name][1] / score_ms[name] / 1e9)
+              for name in ms}
+    log(f"[6 pooled] select over [{POOLED_B}, {POOLED_M}] scores (k = {K}): {select_ms:.3f} ms per launch")
     for name in ms:
-        log(f"[6 pooled] {name}: ms {ms[name]:.3f} per launch (B = {POOLED_B}) bound_ms "
-            f"{bounds[name][0]:.3f} ({bounds[name][1]}) bound/ms {bounds[name][0] / ms[name]:.3f} "
-            f"plain_ms {plain_ms[name]:.3f}")
+        log(f"[6 pooled] {name}: ms {ms[name]:.3f} per launch (B = {POOLED_B}; scoring launches "
+            f"{score_ms[name]:.3f}) bound_ms {bounds[name][0]:.3f} ({bounds[name][1]}) "
+            f"bound/ms {bounds[name][0] / ms[name]:.3f} plain_ms {plain_ms[name]:.3f}; scoring at "
+            f"{tflops[name][0]:.1f} TFLOP/s as done, {tflops[name][1]:.1f} as the bound counts")
+    ptxas = wgmma_ptxas()
+    for ln in ptxas:
+        log(f"[6 pooled] ptxas {ln}")
     return dict(index_build_s=index_build_s, qps=qps, launches=launches, ms=ms, plain_ms=plain_ms,
+                score_ms=score_ms, select_ms=select_ms, tflops=tflops, peak_bytes=peak_bytes,
                 bounds=bounds, max_abs_err={"score_bidirectional": max(err1, dense_err),
                                             "query_topk_fused": err2},
-                differing_ids={"per_query": diff1, "fused": diff2})
+                differing_ids={"per_query": diff1, "fused": diff2}, ptxas=ptxas)
+
+
+def wgmma_ptxas() -> list[str]:
+    """The ptxas report (registers, spills) of each wgmma kernel, with its
+    dynamic shared memory."""
+    from evi_rag_tpu_torch.ops import _build, score_kernels as sk
+
+    smem = sk._lib(sk.SCORE_SOURCE).sb_wg_smem_bytes()
+    out = []
+    for source in (sk.SCORE_SOURCE, sk.POOLED_SOURCE):
+        lines = _build.BUILD_LOG.get(source, "").splitlines()
+        for i, ln in enumerate(lines):
+            if "Compiling entry" in ln and "wg_kernel" in ln:
+                mode = ln.split("wg_kernelILi")[1][0]
+                report = " ".join(x.strip() for x in lines[i + 1:i + 4]
+                                  if "spill" in x or "registers" in x)
+                out.append(f"{source} wg_kernel<{mode}>: {report}; dynamic smem {smem} B")
+    return out
+
+
+ABLATIONS = {"full": [], "no_epilogue": ["-DWG_NO_EPI"], "no_wgmma": ["-DWG_NO_MMA"]}
+
+
+def phase_ablation(m: int) -> None:
+    """Each wgmma kernel built with each ablation switch, timed in turns at
+    B = POOLED_B over m random candidates."""
+    import ctypes
+
+    import torch
+
+    from evi_rag_tpu_torch.ops import _build, score_kernels as sk
+    from evi_rag_tpu_torch.train.checkpoint import bundle_from_numpy
+
+    out = _build.BUILD_DIR / "ablation"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for source in (sk.SCORE_SOURCE, sk.POOLED_SOURCE):
+        for name, flags in ABLATIONS.items():
+            lib = out / f"{source}.{name}.so"
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib), str(_build.CSRC / source)]
+            procs[source, name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                                         text=True))
+    for (source, name), (lib, proc) in procs.items():
+        log_text = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc {source} {name}:\n{log_text}")
+    dev = torch.device("cuda")
+    bundle = {"features": bundle_from_numpy(make_bundle(D, H, S, seed=11)["features"], device=dev)}
+    w = sk.prep_weights(bundle["features"])
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = [torch.tanh(torch.randn(m, D, device=dev, generator=gen)).to(torch.bfloat16) for _ in range(3)]
+    rows.append(torch.randn(m, S, device=dev, generator=gen).to(torch.bfloat16))
+    q = torch.randn(POOLED_B, D, device=dev, generator=gen)
+    for source, entry, fused in ((sk.SCORE_SOURCE, "sb_forward", False), (sk.POOLED_SOURCE, "pq_forward", True)):
+        for name in ABLATIONS:
+            sk._LIBS[source] = sk.type_entries(ctypes.CDLL(str(procs[source, name][0])), source)
+            ms = cuda_ms(lambda: sk._pooled_scores(source, entry, "ablation", bundle, q, rows, w, fused=fused), 2)
+            log(f"[ablation] {source} {name}: {ms:.3f} ms at B = {POOLED_B}, M = {m}; "
+                f"{ms * POOLED_M / m:.1f} ms scaled to M = {POOLED_M}")
+        sk._LIBS.pop(source)
 
 
 def main() -> int:
@@ -620,6 +728,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     OUT_DIR.mkdir(exist_ok=True)
 
+    if sys.argv[1:2] == ["--ablation"]:
+        phase_device()
+        phase_ablation(int(sys.argv[2]) if len(sys.argv) > 2 else 32768)
+        return 0
     t_all = time.perf_counter()
     smi = phase_device()
     build_s = phase_build()
@@ -661,6 +773,10 @@ def main() -> int:
             "bound_ms": pooled["bounds"][name][0],
             "bound_by": pooled["bounds"][name][1],
             "library_ms": None,
+            "scores_ms": pooled["score_ms"][name],
+            "select_ms": pooled["select_ms"],
+            "tflops_as_done": pooled["tflops"][name][0],
+            "tflops_bound_count": pooled["tflops"][name][1],
             "shape": f"B={POOLED_B} M={POOLED_M} D={D} H={H} S={S} k={K}",
         })
     details = dict(nvidia_smi=smi, build_s=build_s, kernel=rows, serve=serve, cli=cli_metrics,

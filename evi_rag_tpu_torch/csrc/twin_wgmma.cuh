@@ -1,0 +1,804 @@
+// Hopper (sm_90a) device code shared by the two pooled-query kernels,
+// score_bidirectional.cu and pooled_query.cu: a wgmma mainloop fed with
+// pre-swizzled W1 tiles by bulk async copies, A rows built once per cluster
+// and pushed to every CTA of it, and an epilogue that runs LayerNorm over H
+// across the cluster.
+//
+// The functions (what each mode computes) are those of twin_score.cuh's
+// header note; only the schedule differs.
+//
+// Layout of the work.
+//   * A cluster of cH = ceil(H / 128) CTAs shares one tile of 128 edges;
+//     CTA rank c owns the H columns [128c, 128c + 128) (W1 columns past H
+//     are zero in the tile image and masked in the epilogue).
+//   * A CTA has 384 threads: two consumer warpgroups (warps 0-7) and one
+//     A-builder warpgroup (warps 8-11).  Consumer
+//     warpgroup g owns edges [64g, 64g + 64) of the tile and two
+//     accumulators of wgmma.m64n128k16 (f32, 64 registers each), acc0 and
+//     acc1, whose meaning depends on the mode (below).
+//   * W1 arrives as w1_tiles [cH][3D/64][128 n][64 k] bf16 (laid out once
+//     on the host, ops/score_kernels.py::w1_tiles): each 16 KB tile is the
+//     shared-memory image of a K-major 128-byte-swizzle wgmma B operand
+//     (16-byte unit j of row n stored at unit j ^ (n % 8)), so one thread
+//     (consumer thread 0, as both warpgroups release a stage) moves a tile
+//     with one cp.async.bulk into a 4-stage mbarrier ring.
+//   * Every CTA of the cluster needs the same A chunks (both accumulators'
+//     [128 edges][64 k] bf16 per step, 32 KB, same swizzle; the last step of
+//     a query also carries the query's dist of the 128 edges).  The builders
+//     of CTA c build the rows of edges [c*128/cH, (c+1)*128/cH) only, and
+//     push each 16-byte unit to every CTA's A ring (3 slots) with st.async,
+//     which completes the receiving CTA's slot barrier; consumers release a
+//     slot by arriving on every CTA's "empty" barrier of that slot.  So the
+//     row build (CUDA cores) is done once per cluster, not once per CTA.
+//   * Rows per W1 byte fetched from L2: 256 in kScore (each tile meets the
+//     fwd and bwd rows of 128 edges) and kEdge ([sc_f|hmt] and [sc_b|-hmt]
+//     rows); 128 in kPooled (u rows against the W1i tile, r_ctx rows against
+//     the W1e tile).
+//
+// Modes (one launch each):
+//   kScore  (score_bidirectional.cu): acc0 = [inter_f|sc_f|err_f] @ W1[:3D],
+//           acc1 = the bwd rows; epilogue z = acc + dist*w1d + b1, then
+//           LayerNorm over H, GELU, folded head, combine -> scores.
+//   kEdge   (pooled_query.cu, per candidate): acc0 = sc_f @ W1s + hmt @ W1e,
+//           acc1 = sc_b @ W1s - hmt @ W1e; epilogue c_{f,b} = acc + b1 ->
+//           scratch [M, 2, H] f32.
+//   kPooled (pooled_query.cu, per query): acc0 = zi = u @ W1i, acc1 = zr =
+//           r_ctx @ W1e; epilogue z_{f,b} = nav_{f,b}*zi + zr + c_{f,b} +
+//           dist_{f,b}*w1d, then as kScore.
+//
+// Epilogue across the cluster: a row's LayerNorm sums (the mean, then the
+// squared deviations, as ln_gelu_head) and its head dot are summed over the
+// CTA's 128 columns inside a lane quad, pushed to every CTA of the cluster
+// (st.async), and summed there in rank order; rank 0 writes the combined
+// score.
+//
+// Ablation switches (compile-time, for measurement only; the scores are then
+// wrong): WG_NO_MMA issues no wgmma, WG_NO_EPI skips the epilogue.
+// `python3 chip_smoke.py --ablation` builds and times them.
+
+#pragma once
+
+#include "twin_score.cuh"
+
+namespace {
+
+constexpr int kSliceN = 128;                          // H columns per CTA
+constexpr int kChunkK = 64;                           // k per tile / A chunk (one 128-byte swizzle row)
+constexpr int kEdgesWG = 64;                          // edges per consumer warpgroup
+constexpr int kEdgesCTA = 2 * kEdgesWG;               // edges per tile (per cluster)
+constexpr int kStages = 4;                            // W1 tile ring
+constexpr int kASlots = 3;                            // A chunk ring
+constexpr int kTileBytes = kSliceN * kChunkK * 2;     // 16 KB
+constexpr int kAChunkBytes = kEdgesWG * kChunkK * 2;  // 8 KB: one accumulator's rows of one warpgroup
+constexpr int kASlotBytes = 4 * kAChunkBytes;         // [2 wg][2 acc]
+constexpr int kConsumers = 256;
+constexpr int kBuilders = 128;                        // warps 8-11
+constexpr int kWgThreads = kConsumers + kBuilders;
+constexpr int kMaxCluster = kMaxH / kSliceN;          // 8
+constexpr int kQueriesPerCta = 8;                     // queries one CTA walks (kScore, kPooled)
+
+enum WgMode { kScore = 0, kEdge = 1, kPooled = 2 };
+
+struct WgArgs {
+  TwinWeights w;                       // w.w1t unused
+  const __nv_bfloat16* w1_tiles;       // [cH][3D/64][128][64], pre-swizzled
+  const __nv_bfloat16 *h, *r, *t;      // [M, D] candidate rows of this launch
+  const __nv_bfloat16 *gate, *bias;    // [B, D]
+  const __nv_bfloat16* sc;             // [M, 2, D] struct contexts (kScore, kEdge)
+  const float* nav;                    // [M, 2] nav gates
+  float* c;                            // [M, 2, H] per-edge terms (kEdge writes, kPooled reads)
+  float* scores;                       // score (b, m) at scores[b * ld_scores + m]
+  long long ld_scores;
+  int M, B;
+};
+
+// Shared memory, from a 1024-byte aligned base.
+constexpr int kSmemW = 0;                                          // [kStages][16 KB]
+constexpr int kSmemA = kSmemW + kStages * kTileBytes;              // [kASlots][2 wg][2 acc][8 KB]
+constexpr int kSmemX = kSmemA + kASlots * kASlotBytes;             // [3][2 par][8 rank][2 dir][128] f32
+constexpr int kSmemDist = kSmemX + 3 * 2 * kMaxCluster * 2 * kEdgesCTA * 4;  // [kASlots][2 dir][128] f32
+constexpr int kSmemDacc = kSmemDist + kASlots * 2 * kEdgesCTA * 4;  // [2 dir][128] f32 (builders)
+constexpr int kSmemWts = kSmemDacc + 2 * kEdgesCTA * 4;           // [5][128] f32: w1d, b1, ln1s, ln1b, w2s slices
+constexpr int kSmemBar = kSmemWts + 5 * kSliceN * 4;
+// Barriers: W full/empty [kStages], A full/empty [kASlots], exchange [3][2].
+constexpr int kBarWFull = 0, kBarWEmpty = kStages, kBarAFull = 2 * kStages, kBarAEmpty = kBarAFull + kASlots;
+constexpr int kBarX = kBarAEmpty + kASlots, kBars = kBarX + 6;
+constexpr int kDistBytes = 2 * kEdgesCTA * 4;                      // a query's dist, sent with its last step
+constexpr int kSmemEnd = kSmemBar + kBars * 8;
+constexpr size_t kWgSmemBytes = kSmemEnd + 1024;                   // + alignment slack
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The shared::cluster address of local shared address `a` in CTA `rank`.
+__device__ __forceinline__ uint32_t mapa(uint32_t a, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Spins until the phase of parity `parity` has completed; traps (a launch
+// error, not a hung card) if that takes more than ~10 s.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  while (!done) {
+    if (clock64() - start > 20000000000ll) asm volatile("trap;");
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Arrive on the barrier at shared::cluster address `bar` (any CTA).
+// (Default .release.cta semantics, as CUTLASS's cluster barrier: the
+// arrivals here release shared-memory slots whose readers, wgmma, have
+// completed.  A .cluster-scope release per arrival was the largest single
+// cost of the mainloop on the H100.)
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// 16 bytes to shared::cluster address `dst`, completing 16 bytes of the
+// transaction count of the barrier at `bar` (in the same CTA as dst).
+__device__ __forceinline__ void st_async16(uint32_t dst, const uint4& v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(
+                   dst),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_async4(uint32_t dst, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(dst),
+               "r"(__float_as_uint(v)), "r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
+                   : "memory");
+}
+
+// Orders this thread's view of shared memory (generic proxy) before the
+// wgmma reads that follow (async proxy).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// K-major, 128-byte swizzle: 8-row groups 1024 bytes apart (SBO), LBO unused.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void acc_fence(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 128] += A[64 x 16] (desc a) @ B[16 x 128] (desc b), bf16 in, f32 sums.
+// d[4j + c] is row 16*warp + lane/4 + 8*(c/2), column 8j + 2*(lane%4) + c%2.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),
+        "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 x = __bfloat1622float2(p[j]);
+    f[2 * j] = x.x;
+    f[2 * j + 1] = x.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+  uint4 v;
+  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) p[j] = __floats2bfloat162_rn(f[2 * j], f[2 * j + 1]);
+  return v;
+}
+
+__device__ __forceinline__ uint4 ldg16(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// Which W1 chunk (of the 3D/64 in a column slice) the i-th tile of one
+// query's (or, for kEdge, one edge tile's) mainloop is.
+template <int kMode>
+__device__ __forceinline__ int tile_chunk(int i, int kc) {
+  if (kMode == kScore) return i;                        // W1[:3D] in order
+  if (kMode == kEdge) return kc + i;                    // W1s, then W1e
+  return (i & 1) ? 2 * kc + (i >> 1) : (i >> 1);        // W1i, W1e, W1i, W1e, ...
+}
+
+// The raw 16-byte units that step s builds one edge's unit u from (columns
+// 8u .. 8u+8 of the step's chunk): h, r, t, gate, bias (v[0..4]), or sc_f,
+// sc_b (v[0], v[1]) on struct steps.
+template <int kMode>
+__device__ __forceinline__ void load_units(const WgArgs& p, int me, int s, int kc, int q, int u, uint4 (&v)[5]) {
+  const size_t D = p.w.D;
+  const int c = (kMode == kPooled ? s : s % kc) * kChunkK + 8 * u;
+  if ((kMode == kScore && s / kc == 1) || (kMode == kEdge && s < kc)) {
+    v[0] = ldg16(p.sc + (2 * (size_t)me) * D + c);
+    v[1] = ldg16(p.sc + (2 * (size_t)me + 1) * D + c);
+    return;
+  }
+  v[0] = ldg16(p.h + (size_t)me * D + c);
+  v[2] = ldg16(p.t + (size_t)me * D + c);
+  if (kMode != kEdge) {
+    v[1] = ldg16(p.r + (size_t)me * D + c);
+    v[3] = ldg16(p.gate + (size_t)q * D + c);
+    v[4] = ldg16(p.bias + (size_t)q * D + c);
+  }
+}
+
+// The two A units (acc0's, acc1's) of step s from load_units' v, and their
+// err sums (kScore err steps, kPooled) added to df / db.  The rounding points
+// are the mma.sync kernels' (score_kernel for kScore, pooled_kernel's
+// factorised rows otherwise).
+template <int kMode>
+__device__ __forceinline__ void build_units(const uint4 (&v)[5], int s, int kc, uint4& o0, uint4& o1, float& df,
+                                            float& db, float navf, float navb) {
+  const int seg = kMode == kPooled ? 0 : s / kc;
+  if ((kMode == kScore && seg == 1) || (kMode == kEdge && seg == 0)) {
+    o0 = v[0];
+    o1 = v[1];
+    return;
+  }
+  float h8[8], t8[8], x0[8], x1[8];
+  unpack8(v[0], h8);
+  unpack8(v[2], t8);
+  if (kMode == kEdge) {  // hmt and -hmt
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      x0[j] = round_bf16(__fsub_rn(h8[j], t8[j]));
+      x1[j] = -x0[j];
+    }
+  } else {
+    float r8[8], g8[8], b8[8];
+    unpack8(v[1], r8);
+    unpack8(v[3], g8);
+    unpack8(v[4], b8);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (kMode == kScore) {
+        // Separate roundings (no FMA contraction), as score_kernel.
+        const float rc = __fadd_rn(__fmul_rn(r8[j], g8[j]), b8[j]);
+        if (seg == 0) {
+          x0[j] = __fmul_rn(__fmul_rn(__fmul_rn(h8[j], rc), t8[j]), navf);
+          x1[j] = __fmul_rn(__fmul_rn(__fmul_rn(t8[j], rc), h8[j]), navb);
+        } else {
+          x0[j] = __fsub_rn(__fadd_rn(h8[j], rc), t8[j]);
+          x1[j] = __fsub_rn(__fadd_rn(t8[j], rc), h8[j]);
+          df += x0[j] * x0[j];
+          db += x1[j] * x1[j];
+        }
+      } else {
+        // The factorised rows: u = bf16(prod*gate + (h*t)*bias), r_ctx.
+        const float ht = __fmul_rn(h8[j], t8[j]);
+        const float prod = round_bf16(__fmul_rn(ht, r8[j]));
+        x0[j] = __fadd_rn(__fmul_rn(prod, g8[j]), __fmul_rn(ht, b8[j]));
+        x1[j] = round_bf16(__fadd_rn(__fmul_rn(r8[j], g8[j]), b8[j]));
+        const float hmt = round_bf16(__fsub_rn(h8[j], t8[j]));
+        const float ef = round_bf16(__fadd_rn(x1[j], hmt));
+        const float eb = round_bf16(__fsub_rn(x1[j], hmt));
+        df += ef * ef;
+        db += eb * eb;
+      }
+    }
+  }
+  o0 = pack8(x0);
+  o1 = pack8(x1);
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int D = p.w.D, H = p.w.H, kc = D / kChunkK;
+  const int rank = blockIdx.x, ranks = gridDim.x;
+  const int col0 = rank * kSliceN;
+  const int m0 = blockIdx.z * kEdgesCTA;
+  const int q0 = kMode == kEdge ? 0 : blockIdx.y * kQueriesPerCta;
+  const int iters = kMode == kEdge ? 1 : min(kQueriesPerCta, p.B - q0);
+  const int steps = kMode == kScore ? 3 * kc : (kMode == kEdge ? 2 * kc : kc);
+  const int gsteps = iters * steps;
+  const int tps = kMode == kPooled ? 2 : 1;              // W1 tiles per step
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const uint32_t w_base = smem_u32(smem + kSmemW), a_smem = smem_u32(smem + kSmemA);
+  const uint32_t bar0 = smem_u32(smem + kSmemBar);
+  auto bar = [&](int i) { return bar0 + 8 * i; };
+  float* xbuf = reinterpret_cast<float*>(smem + kSmemX);
+  float* dist = reinterpret_cast<float*>(smem + kSmemDist);
+  float* dacc = reinterpret_cast<float*>(smem + kSmemDacc);
+  const uint32_t x_smem = smem_u32(xbuf), dist_smem = smem_u32(dist);
+  // Bytes that land in the A slot of global step g: its rows, and the
+  // query's dist with its last step.
+  auto slot_bytes = [&](int g) {
+    return kASlotBytes + (kMode != kEdge && g % steps == steps - 1 ? kDistBytes : 0);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar(kBarWFull + s), 1);
+      mbar_init(bar(kBarWEmpty + s), 2);
+    }
+    for (int s = 0; s < kASlots; ++s) {
+      mbar_init(bar(kBarAFull + s), 1);
+      mbar_init(bar(kBarAEmpty + s), 2 * ranks);
+    }
+    for (int i = 0; i < 6; ++i) mbar_init(bar(kBarX + i), 1);
+    // Arm the first phase of every A slot and exchange buffer in use.
+    for (int g = 0; g < kASlots && g < gsteps; ++g) mbar_expect_tx(bar(kBarAFull + g), slot_bytes(g));
+    if (kMode != kEdge) {
+      for (int par = 0; par < 2 && par < iters; ++par)
+        for (int k = 0; k < 3; ++k) mbar_expect_tx(bar(kBarX + 2 * k + par), ranks * 2 * kEdgesCTA * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (tid < 2 * kEdgesCTA) dacc[tid] = 0.f;
+  // The epilogue's per-column weights of this CTA's slice (0 past H).
+  float* wts = reinterpret_cast<float*>(smem + kSmemWts);
+  if (tid < kSliceN) {
+    const int col = col0 + tid;
+    const bool ok = col < H;
+    wts[tid] = ok ? p.w.w1d[col] : 0.f;
+    wts[kSliceN + tid] = ok ? p.w.b1[col] : 0.f;
+    wts[2 * kSliceN + tid] = ok ? p.w.ln1s[col] : 0.f;
+    wts[3 * kSliceN + tid] = ok ? p.w.ln1b[col] : 0.f;
+    wts[4 * kSliceN + tid] = ok ? p.w.w2s[col] : 0.f;
+  }
+  cluster_sync();
+
+  const int tpi = steps * tps;                            // W1 tiles per query
+  const __nv_bfloat16* w_src = p.w1_tiles + (size_t)rank * 3 * kc * (kTileBytes / 2);
+  auto issue_tile = [&](int i) {  // W1 tile i of this CTA's sequence into ring stage i % kStages
+    const int st = i % kStages;
+    mbar_expect_tx(bar(kBarWFull + st), kTileBytes);
+    bulk_copy(w_base + st * kTileBytes, w_src + (size_t)tile_chunk<kMode>(i % tpi, kc) * (kTileBytes / 2),
+              kTileBytes, bar(kBarWFull + st));
+  };
+  if (tid == 0)
+    for (int i = 0; i < kStages && i < iters * tpi; ++i) issue_tile(i);
+
+  if (warp >= kConsumers / 32) {
+    // ---- A builders: this CTA's share of the tile's edges, 8 threads per
+    // edge (one 16-byte unit each), 16 edges per round (one round at
+    // H > 896); each unit goes to every CTA of the cluster.  The raw units
+    // of the next step (first two rounds) load while this step waits for
+    // its slot and builds.
+    const int bt = tid - kConsumers, u = bt & 7;
+    const int per = (kEdgesCTA + ranks - 1) / ranks, e0 = rank * per, e1 = min(kEdgesCTA, e0 + per);
+    const int rounds = (per + kBuilders / 8 - 1) / (kBuilders / 8);
+    auto edge_of = [&](int rd) { return e0 + rd * (kBuilders / 8) + (bt >> 3); };
+    auto fetch = [&](int g, int rd, uint4 (&v)[5]) {
+      const int e = edge_of(rd);
+      if (g < gsteps && e < e1 && m0 + e < p.M) load_units<kMode>(p, m0 + e, g % steps, kc, q0 + g / steps, u, v);
+    };
+    uint4 cur[2][5], nxt[2][5];
+    float nav2[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // nav of the first two rounds' edges (kScore)
+#pragma unroll
+    for (int rd = 0; rd < 2; ++rd) {
+      if (rd < rounds) fetch(0, rd, cur[rd]);
+      const int me = m0 + edge_of(rd);
+      if (kMode == kScore && rd < rounds && edge_of(rd) < e1 && me < p.M) {
+        nav2[rd][0] = p.nav[2 * (size_t)me];
+        nav2[rd][1] = p.nav[2 * (size_t)me + 1];
+      }
+    }
+    for (int g = 0; g < gsteps; ++g) {
+      const int it = g / steps, s = g % steps, slot = g % kASlots;
+#pragma unroll
+      for (int rd = 0; rd < 2; ++rd)
+        if (rd < rounds) fetch(g + 1, rd, nxt[rd]);
+      mbar_wait(bar(kBarAEmpty + slot), ((g / kASlots) & 1) ^ 1);
+      for (int rd = 0; rd < rounds; ++rd) {
+        const int e = edge_of(rd);
+        const bool valid = e < e1;
+        const int me = m0 + e;
+        float df = 0.f, db = 0.f;
+        if (valid) {
+          uint4 o0 = make_uint4(0u, 0u, 0u, 0u), o1 = o0;
+          if (me < p.M) {
+            uint4 v[5];
+            float navf, navb;
+            if (rd < 2) {
+#pragma unroll
+              for (int x = 0; x < 5; ++x) v[x] = rd == 0 ? cur[0][x] : cur[1][x];
+              navf = rd == 0 ? nav2[0][0] : nav2[1][0];
+              navb = rd == 0 ? nav2[0][1] : nav2[1][1];
+            } else {
+              load_units<kMode>(p, me, s, kc, q0 + it, u, v);
+              navf = kMode == kScore ? p.nav[2 * (size_t)me] : 0.f;
+              navb = kMode == kScore ? p.nav[2 * (size_t)me + 1] : 0.f;
+            }
+            build_units<kMode>(v, s, kc, o0, o1, df, db, navf, navb);
+          }
+          const int wg = e / kEdgesWG, row = e % kEdgesWG;
+          const uint32_t off = slot * kASlotBytes + wg * 2 * kAChunkBytes + row * 128 + ((u ^ (row & 7)) << 4);
+          for (int rk = 0; rk < ranks; ++rk) {
+            const uint32_t fb = mapa(bar(kBarAFull + slot), rk);
+            st_async16(mapa(a_smem + off, rk), o0, fb);
+            st_async16(mapa(a_smem + off + kAChunkBytes, rk), o1, fb);
+          }
+        }
+        if (kMode != kEdge) {
+          // dist sums: the 8 threads of an edge, then over steps in dacc.
+          df += __shfl_xor_sync(0xffffffffu, df, 1);
+          df += __shfl_xor_sync(0xffffffffu, df, 2);
+          df += __shfl_xor_sync(0xffffffffu, df, 4);
+          db += __shfl_xor_sync(0xffffffffu, db, 1);
+          db += __shfl_xor_sync(0xffffffffu, db, 2);
+          db += __shfl_xor_sync(0xffffffffu, db, 4);
+          if (valid && u == 0) {
+            dacc[e] += df;
+            dacc[kEdgesCTA + e] += db;
+          }
+        }
+      }
+#pragma unroll
+      for (int rd = 0; rd < 2; ++rd)
+#pragma unroll
+        for (int x = 0; x < 5; ++x) cur[rd][x] = nxt[rd][x];
+      if (kMode != kEdge && s == steps - 1) {
+        // The query's dist of this CTA's edges, to every CTA, with the
+        // query's last A slot.
+        __syncwarp();
+        for (int rd = 0; rd < rounds; ++rd) {
+          const int e = edge_of(rd);
+          if (e < e1 && u == 0) {
+            const float dfv = -sqrtf(dacc[e] + 1e-12f), dbv = -sqrtf(dacc[kEdgesCTA + e] + 1e-12f);
+            dacc[e] = dacc[kEdgesCTA + e] = 0.f;
+            const uint32_t off = (slot * 2 * kEdgesCTA + e) * 4;
+            for (int rk = 0; rk < ranks; ++rk) {
+              const uint32_t fb = mapa(bar(kBarAFull + slot), rk);
+              st_async4(mapa(dist_smem + off, rk), dfv, fb);
+              st_async4(mapa(dist_smem + off + kEdgesCTA * 4, rk), dbv, fb);
+            }
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg, thread tw of 128.
+    const int wg = warp >> 2, tw = tid & 127;
+    // Epilogue rows: edges e[0] (row lane/4 of the warp's 16) and e[1] = e[0] + 8.
+    int ecta[2];
+    ecta[0] = wg * kEdgesWG + (warp & 3) * 16 + (lane >> 2);
+    ecta[1] = ecta[0] + 8;
+    float acc0[64], acc1[64];
+    float dv[2][2];  // dist of the epilogue rows (dir, row)
+
+    // Sum of per-(dir, edge) partials over the cluster: the lane quad (the
+    // CTA's 128 columns), pushed to every CTA's exchange buffer k, then the
+    // ranks' values summed in rank order.
+    auto cluster_row_sum = [&](float (&part)[2][2], int k, int it) {
+      const int par = it & 1;
+#pragma unroll
+      for (int dir = 0; dir < 2; ++dir)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          part[dir][i] += __shfl_xor_sync(0xffffffffu, part[dir][i], 1);
+          part[dir][i] += __shfl_xor_sync(0xffffffffu, part[dir][i], 2);
+        }
+      const int xb = kBarX + 2 * k + par;
+      const int base = ((k * 2 + par) * kMaxCluster) * 2 * kEdgesCTA;  // [k][par][rank][dir][edge]
+      if ((lane & 3) == 0) {
+        for (int rk = 0; rk < ranks; ++rk) {
+          const uint32_t fb = mapa(bar(xb), rk);
+#pragma unroll
+          for (int dir = 0; dir < 2; ++dir)
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              st_async4(mapa(x_smem + 4 * (base + (rank * 2 + dir) * kEdgesCTA + ecta[i]), rk), part[dir][i], fb);
+        }
+      }
+      mbar_wait(bar(xb), (it >> 1) & 1);
+      if (tid == 0 && it + 2 < iters) mbar_expect_tx(bar(xb), ranks * 2 * kEdgesCTA * 4);
+#pragma unroll
+      for (int dir = 0; dir < 2; ++dir)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float sum = 0.f;
+          for (int rk = 0; rk < ranks; ++rk) sum += xbuf[base + (rk * 2 + dir) * kEdgesCTA + ecta[i]];
+          part[dir][i] = sum;
+        }
+    };
+
+    for (int it = 0; it < iters; ++it) {
+      const int q = q0 + it;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
+      for (int s = 0; s < steps; ++s) {
+        const int g = it * steps + s, slot = g % kASlots;
+        const int j = g * tps;
+        const int st0 = j % kStages, st1 = (j + tps - 1) % kStages;
+        mbar_wait(bar(kBarWFull + st0), (j / kStages) & 1);
+        if (tps == 2) mbar_wait(bar(kBarWFull + st1), ((j + 1) / kStages) & 1);
+        mbar_wait(bar(kBarAFull + slot), (g / kASlots) & 1);
+        if (tid == 0 && g + kASlots < gsteps) mbar_expect_tx(bar(kBarAFull + slot), slot_bytes(g + kASlots));
+        if (kMode != kEdge && s == steps - 1) {  // the query's dist, read before the slot is released
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            dv[0][i] = dist[slot * 2 * kEdgesCTA + ecta[i]];
+            dv[1][i] = dist[slot * 2 * kEdgesCTA + kEdgesCTA + ecta[i]];
+          }
+        }
+        fence_async_smem();
+        __syncwarp();  // wgmma is warp-aligned: reconverge after the waits
+        const uint32_t a0 = a_smem + slot * kASlotBytes + wg * 2 * kAChunkBytes;
+        const uint64_t da0 = sw128_desc(a0), da1 = sw128_desc(a0 + kAChunkBytes);
+        const uint64_t db0 = sw128_desc(w_base + st0 * kTileBytes), db1 = sw128_desc(w_base + st1 * kTileBytes);
+        wgmma_fence();
+        acc_fence(acc0);
+        acc_fence(acc1);
+#ifndef WG_NO_MMA
+#pragma unroll
+        for (int kk = 0; kk < kChunkK / 16; ++kk) {  // 32 bytes of k per step: +2 in the descriptor
+          wgmma_m64n128k16(acc0, da0 + 2 * kk, db0 + 2 * kk);
+          wgmma_m64n128k16(acc1, da1 + 2 * kk, db1 + 2 * kk);
+        }
+#endif
+        wgmma_commit();
+        wgmma_wait_all();
+        acc_fence(acc0);
+        acc_fence(acc1);
+        __syncwarp();
+        if (tw == 0) {
+          mbar_arrive(bar(kBarWEmpty + st0));
+          if (tps == 2) mbar_arrive(bar(kBarWEmpty + st1));
+        }
+        if (tw < ranks) mbar_arrive_cluster(mapa(bar(kBarAEmpty + slot), tw));  // one lane per CTA
+        if (tid == 0) {  // refill the stages both warpgroups have released
+          for (int t = j; t < j + tps; ++t) {
+            if (t + kStages < iters * tpi) {
+              mbar_wait(bar(kBarWEmpty + t % kStages), (t / kStages) & 1);
+              issue_tile(t + kStages);
+            }
+          }
+        }
+        __syncwarp();
+      }
+
+      if (kMode == kEdge) {
+        // c_{f,b} = acc + b1 -> scratch.
+#pragma unroll
+        for (int jn = 0; jn < kSliceN / 8; ++jn) {
+          const int col = col0 + 8 * jn + 2 * (lane & 3);
+          if (col < H) {
+            const float2 bb = *reinterpret_cast<const float2*>(wts + kSliceN + col - col0);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const int m = m0 + ecta[i];
+              if (m < p.M) {
+                float* cp = p.c + (2 * (size_t)m) * H + col;
+                *reinterpret_cast<float2*>(cp) =
+                    make_float2(acc0[4 * jn + 2 * i] + bb.x, acc0[4 * jn + 2 * i + 1] + bb.y);
+                *reinterpret_cast<float2*>(cp + H) =
+                    make_float2(acc1[4 * jn + 2 * i] + bb.x, acc1[4 * jn + 2 * i + 1] + bb.y);
+              }
+            }
+          }
+        }
+        continue;
+      }
+#ifdef WG_NO_EPI
+      if (tw < 2 && rank == 0) p.scores[(long long)q * p.ld_scores + m0 + tw] = acc0[0] + acc1[5];
+      continue;
+#endif
+
+      float nv[2][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int m = m0 + ecta[i];
+        const bool ok = kMode == kPooled && m < p.M;
+        nv[0][i] = ok ? p.nav[2 * (size_t)m] : 0.f;
+        nv[1][i] = ok ? p.nav[2 * (size_t)m + 1] : 0.f;
+      }
+      // z into acc0 (fwd) and acc1 (bwd); columns past H are zero.
+      float part[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+      for (int jn = 0; jn < kSliceN / 8; ++jn) {
+        const int col = col0 + 8 * jn + 2 * (lane & 3);
+        const bool ok = col < H;
+        const float2 wd = *reinterpret_cast<const float2*>(wts + col - col0);
+        const float2 bb = *reinterpret_cast<const float2*>(wts + kSliceN + col - col0);
+        float2 cfb[2][2];  // [row][dir] c of columns col, col + 1 (kPooled)
+        if (kMode == kPooled) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int m = m0 + ecta[i];
+            const float* cp = p.c + (2 * (size_t)m) * H + col;
+            const bool live = ok && m < p.M;
+            cfb[i][0] = live ? *reinterpret_cast<const float2*>(cp) : make_float2(0.f, 0.f);
+            cfb[i][1] = live ? *reinterpret_cast<const float2*>(cp + H) : make_float2(0.f, 0.f);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = c >> 1;
+          const float w = (c & 1) ? wd.y : wd.x;
+          float zf, zb;
+          if (kMode == kScore) {
+            const float b = (c & 1) ? bb.y : bb.x;
+            zf = acc0[4 * jn + c] + dv[0][i] * w + b;
+            zb = acc1[4 * jn + c] + dv[1][i] * w + b;
+          } else {
+            const float cf = (c & 1) ? cfb[i][0].y : cfb[i][0].x, cb = (c & 1) ? cfb[i][1].y : cfb[i][1].x;
+            const float zi = acc0[4 * jn + c], zr = acc1[4 * jn + c];
+            zf = nv[0][i] * zi + zr + cf + dv[0][i] * w;
+            zb = nv[1][i] * zi + zr + cb + dv[1][i] * w;
+          }
+          if (!ok) zf = zb = 0.f;
+          acc0[4 * jn + c] = zf;
+          acc1[4 * jn + c] = zb;
+          part[0][i] += zf;
+          part[1][i] += zb;
+        }
+      }
+      cluster_row_sum(part, 0, it);
+      float mean[2][2], rstd[2][2];
+#pragma unroll
+      for (int dir = 0; dir < 2; ++dir)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mean[dir][i] = part[dir][i] / H;
+          part[dir][i] = 0.f;
+        }
+#pragma unroll
+      for (int jn = 0; jn < kSliceN / 8; ++jn) {
+        if (col0 + 8 * jn < H) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float a = acc0[4 * jn + c] - mean[0][c >> 1], b = acc1[4 * jn + c] - mean[1][c >> 1];
+            part[0][c >> 1] += a * a;
+            part[1][c >> 1] += b * b;
+          }
+        }
+      }
+      cluster_row_sum(part, 1, it);
+#pragma unroll
+      for (int dir = 0; dir < 2; ++dir)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          rstd[dir][i] = rsqrtf(part[dir][i] / H + 1e-5f);
+          part[dir][i] = 0.f;
+        }
+#pragma unroll
+      for (int jn = 0; jn < kSliceN / 8; ++jn) {
+        const int col = col0 + 8 * jn + 2 * (lane & 3);
+        if (col < H) {
+          const float2 ls = *reinterpret_cast<const float2*>(wts + 2 * kSliceN + col - col0);
+          const float2 lb = *reinterpret_cast<const float2*>(wts + 3 * kSliceN + col - col0);
+          const float2 w2 = *reinterpret_cast<const float2*>(wts + 4 * kSliceN + col - col0);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int i = c >> 1;
+            const bool odd = c & 1;
+            const float s = odd ? ls.y : ls.x, o = odd ? lb.y : lb.x, w = odd ? w2.y : w2.x;
+            part[0][i] += gelu_erf((acc0[4 * jn + c] - mean[0][i]) * rstd[0][i] * s + o) * w;
+            part[1][i] += gelu_erf((acc1[4 * jn + c] - mean[1][i]) * rstd[1][i] * s + o) * w;
+          }
+        }
+      }
+      cluster_row_sum(part, 2, it);
+      if (rank == 0 && (lane & 3) == 0) {
+        const float b2 = p.w.b2s[0];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int m = m0 + ecta[i];
+          if (m < p.M) p.scores[(long long)q * p.ld_scores + m] = combine(part[0][i] + b2, part[1][i] + b2);
+        }
+      }
+    }
+  }
+  // No CTA leaves while a peer may still push to or arrive on its shared memory.
+  cluster_sync();
+}
+
+// Launches wg_kernel<kMode> over M edges (and B queries) with a cluster of
+// ceil(H / 128) CTAs; returns the CUDA error (a cluster that cannot be
+// scheduled is refused).
+template <int kMode>
+cudaError_t launch_wg(const WgArgs& a, cudaStream_t stream) {
+  const int ranks = (a.w.H + kSliceN - 1) / kSliceN;
+  const int qgroups = kMode == kEdge ? 1 : (a.B + kQueriesPerCta - 1) / kQueriesPerCta;
+  const int tiles = (a.M + kEdgesCTA - 1) / kEdgesCTA;
+  if (tiles > 65535 || qgroups > 65535) return cudaErrorInvalidValue;
+  void (*fn)(WgArgs) = wg_kernel<kMode>;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kWgSmemBytes));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ranks, qgroups, tiles);
+  cfg.blockDim = dim3(kWgThreads, 1, 1);
+  cfg.dynamicSmemBytes = kWgSmemBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;  // the cluster cannot be scheduled
+  return cudaLaunchKernelEx(&cfg, fn, a);
+}
+
+// One warp per edge: sc_{f,b} (bf16) and nav_{f,b} (f32) of M edges, the
+// query-independent struct terms, into sc [M, 2, D] and nav [M, 2].
+__global__ void __launch_bounds__(kThreads) struct_rows_kernel(TwinWeights w, const __nv_bfloat16* st,
+                                                               __nv_bfloat16* sc, float* nav, int M) {
+  const int lane = threadIdx.x & 31;
+  const int m = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (m >= M) return;
+  float nv[2];
+  build_struct_rows(w, st + (size_t)m * w.S, sc + 2 * (size_t)m * w.D, sc + (2 * (size_t)m + 1) * w.D, nv, lane);
+  if (lane == 0) {
+    nav[2 * (size_t)m] = nv[0];
+    nav[2 * (size_t)m + 1] = nv[1];
+  }
+}
+
+inline cudaError_t launch_struct_rows(const TwinWeights& w, const __nv_bfloat16* st, __nv_bfloat16* sc,
+                                      float* nav, int M, cudaStream_t stream) {
+  struct_rows_kernel<<<(M + kWarps - 1) / kWarps, kThreads, 0, stream>>>(w, st, sc, nav, M);
+  return cudaGetLastError();
+}
+
+}  // namespace

@@ -16,8 +16,10 @@ wrapper                     TPU kernel (wrappers)           CUDA source (``csrc/
                             (``pallas_query_topk_fused``)
 ==========================  ==============================  =========================
 
-The device code they share is ``csrc/twin_score.cuh``; see the notes in the
-sources for each design and bound.
+The device code they share is ``csrc/twin_score.cuh`` (all three) and
+``csrc/twin_wgmma.cuh`` (the two pooled kernels: wgmma, bulk-copied W1 tiles,
+H split across a thread-block cluster); see the notes in the sources for each
+design and bound.
 
 * A wrapper launches its kernel for CUDA tensors and counts the launch in
   ``<wrapper>.launches`` (``query_topk_per_query`` counts through
@@ -47,6 +49,9 @@ SCORE_SOURCE = "score_bidirectional.cu"
 POOLED_SOURCE = "pooled_query.cu"
 KERNEL_SOURCES = (KERNEL_SOURCE, SCORE_SOURCE, POOLED_SOURCE)
 MAX_K = 1024              # the select launch's limit (kMaxK in twin_score.cuh)
+SLICE_N = 128             # H columns per CTA of the pooled kernels (kSliceN in twin_wgmma.cuh)
+TILE_K = 64               # k per W1 tile (kChunkK)
+SCRATCH_BYTES = 1 << 30   # pooled kernels: per-call scratch limit; M is chunked to keep within it
 _CHUNK_ELEMS = 1 << 27    # plain pooled versions: [B, chunk, D] temporaries of at most this many
 
 
@@ -59,8 +64,9 @@ def prep_weights(feats: dict[str, Any]) -> dict[str, torch.Tensor]:
     ``w2s = W2 @ w_score``, ``b2s = b2 @ w_score + b_score`` (no
     nonlinearity separates ``state_net_1`` from ``score_head``).  The struct
     projection stays f32, as on the XLA path.  ``w1t`` (``kernel_w1_layout``,
-    present when D % 64 == 0) and ``ws`` (``[S, D]``) are the kernels'
-    layouts.
+    the per-question kernel's), ``w1_tiles`` (``w1_tiles``, the pooled
+    kernels'; both present when D % 64 == 0) and ``ws`` (``[S, D]``) are the
+    kernels' layouts.
     """
     d = feats["q_gate"]["kernel"].shape[0]
     w1 = feats["state_net_0"]["kernel"]
@@ -92,7 +98,9 @@ def prep_weights(feats: dict[str, Any]) -> dict[str, torch.Tensor]:
     }
     out["ws"] = ws.contiguous()
     if d % 64 == 0:  # the kernels' D; other widths only take the plain versions
-        out["w1t"] = kernel_w1_layout(torch.cat([out["w1_inter"], out["w1_struct"], out["w1_err"]]))
+        w1cat = torch.cat([out["w1_inter"], out["w1_struct"], out["w1_err"]])
+        out["w1t"] = kernel_w1_layout(w1cat)
+        out["w1_tiles"] = w1_tiles(w1cat)
     return out
 
 
@@ -104,6 +112,26 @@ def kernel_w1_layout(w1: torch.Tensor) -> torch.Tensor:
     w1t = w1.t()
     h, kk = w1t.shape
     return w1t.reshape(h, kk // 16, 2, 4, 2).permute(0, 1, 3, 2, 4).reshape(h, kk).contiguous()
+
+
+def w1_tiles(w1: torch.Tensor, slice_n: int = SLICE_N) -> torch.Tensor:
+    """``W1[:3D]`` ([3D, H]) as the pooled kernels' tile image
+    ``[ceil(H / slice_n), 3D / 64, slice_n, 64]``: tile (c, kc) holds
+    ``W1[64 kc : 64 kc + 64, slice_n c : slice_n c + slice_n]`` transposed
+    (row n = column ``slice_n c + n`` of W1, 64 k contiguous: 128 bytes in
+    bf16), with the 16-byte unit j of row n stored at unit ``j ^ (n % 8)``.
+    That is the shared-memory image of a K-major, 128-byte-swizzle ``wgmma``
+    B operand, so one bulk copy moves a tile.  Columns past H are zero."""
+    kk, h = w1.shape
+    if kk % TILE_K or slice_n % 8:
+        raise ValueError(f"w1 rows {kk} must be a multiple of {TILE_K}, slice width {slice_n} of 8")
+    ch = -(-h // slice_n)
+    wt = torch.zeros(ch * slice_n, kk, dtype=w1.dtype, device=w1.device)
+    wt[:h] = w1.t()
+    tiles = wt.reshape(ch, slice_n, kk // TILE_K, 8, 8).permute(0, 2, 1, 3, 4)  # [c, kc, n, unit, 8]
+    n = torch.arange(slice_n, device=w1.device)[:, None]
+    unit = torch.arange(8, device=w1.device)[None, :] ^ (n % 8)  # stored unit p holds unit p ^ (n % 8)
+    return tiles[:, :, n, unit, :].reshape(ch, kk // TILE_K, slice_n, TILE_K).contiguous()
 
 
 def query_gate_bias(feats: dict[str, Any], q_emb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -301,11 +329,27 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _ENTRIES = {
     KERNEL_SOURCE: ("pqt", {"forward": [ctypes.c_void_p] * 23 + [ctypes.c_int] * 6 + [ctypes.c_void_p]}),
     SCORE_SOURCE: ("sb", {
-        "forward": [ctypes.c_void_p] * 20 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        "forward": [ctypes.c_void_p] * 22 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p],
         "select": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     }),
-    POOLED_SOURCE: ("pq", {"forward": [ctypes.c_void_p] * 22 + [ctypes.c_int] * 6 + [ctypes.c_void_p]}),
+    POOLED_SOURCE: ("pq", {
+        "forward": [ctypes.c_void_p] * 23 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    }),
 }
+
+
+def type_entries(lib: ctypes.CDLL, source: str) -> ctypes.CDLL:
+    """Set the argument and result types of ``source``'s C entries on ``lib``."""
+    prefix, entries = _ENTRIES[source]
+    for name, argtypes in entries.items():
+        fn = getattr(lib, f"{prefix}_{name}")
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    err = getattr(lib, f"{prefix}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    lib.error_string = err
+    return lib
 
 
 def _lib(source: str) -> ctypes.CDLL:
@@ -313,17 +357,7 @@ def _lib(source: str) -> ctypes.CDLL:
     if source not in _LIBS:
         from evi_rag_tpu_torch.ops._build import load_library
 
-        lib = load_library(source)
-        prefix, entries = _ENTRIES[source]
-        for name, argtypes in entries.items():
-            fn = getattr(lib, f"{prefix}_{name}")
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        err = getattr(lib, f"{prefix}_error_string")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        lib.error_string = err
-        _LIBS[source] = lib
+        _LIBS[source] = type_entries(load_library(source), source)
     return _LIBS[source]
 
 
@@ -347,8 +381,9 @@ def _check(
         raise ValueError(f"{name} must be contiguous and {align}-byte aligned")
 
 
-def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(x.data_ptr())
+def _ptr(x: torch.Tensor, offset: int = 0) -> ctypes.c_void_p:
+    """The address of element ``offset`` of ``x``'s storage view."""
+    return ctypes.c_void_p(x.data_ptr() + offset * x.element_size())
 
 
 def _stream(dev: torch.device) -> ctypes.c_void_p:
@@ -388,14 +423,66 @@ def _kernel_weights(
     shapes = [(1, h_dim), (h_dim,), (h_dim,), (h_dim,), (h_dim, 1), (1,), (s, d), (d,), (d,), (d,),
               (d, 1), (1,)]
     _check("w1t", w["w1t"], torch.bfloat16, (h_dim, 3 * d), dev)
+    _check("w1_tiles", w["w1_tiles"], torch.bfloat16, (-(-h_dim // SLICE_N), 3 * d // TILE_K, SLICE_N, TILE_K),
+           dev, align=16)
     for name, shape in zip(_F32_WEIGHTS, shapes):
         _check(name, w[name], torch.float32, shape, dev)
     return w
 
 
-def _weight_args(w: dict[str, torch.Tensor]) -> list[Any]:
-    """Pointers to w1t and the f32 weights, in the C entries' order."""
-    return [_ptr(w["w1t"])] + [_ptr(w[name]) for name in _F32_WEIGHTS]
+def _weight_args(w: dict[str, torch.Tensor], layout: str = "w1t") -> list[Any]:
+    """Pointers to W1 in ``layout`` and the f32 weights, in the C entries' order."""
+    return [_ptr(w[layout])] + [_ptr(w[name]) for name in _F32_WEIGHTS]
+
+
+def scratch_bytes_per_edge(d: int, h: int, fused: bool) -> int:
+    """Device scratch of the pooled kernels per candidate: sc [2, D] bf16 and
+    nav [2] f32 (both), plus c [2, H] f32 (the factorised kernel)."""
+    return 2 * d * 2 + 2 * 4 + (2 * h * 4 if fused else 0)
+
+
+def _edge_chunks(m: int, per_edge: int) -> list[tuple[int, int]]:
+    """(start, stop) candidate ranges whose scratch stays within
+    ``SCRATCH_BYTES`` (multiples of 128 edges, at least one tile)."""
+    step = max(128, SCRATCH_BYTES // per_edge // 128 * 128)
+    return [(c0, min(c0 + step, m)) for c0 in range(0, m, step)]
+
+
+def _select(scores: torch.Tensor, k: int, name: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k of each row of [B, M] f32 scores on the card (the select
+    launch of ``csrc/score_bidirectional.cu``): ([B, k] f32, [B, k] int32)."""
+    b, m = scores.shape
+    vals = torch.empty((b, k), dtype=torch.float32, device=scores.device)
+    ids = torch.empty((b, k), dtype=torch.int32, device=scores.device)
+    _launch(SCORE_SOURCE, "sb_select", name, _ptr(scores), _ptr(vals), _ptr(ids), b, m, k,
+            _stream(scores.device))
+    return vals, ids
+
+
+def _pooled_scores(source: str, entry: str, name: str, bundle, q_emb, rows, weights, fused: bool) -> torch.Tensor:
+    """[B, M] f32 scores of one pooled kernel, launched once per candidate
+    chunk with scratch reused across chunks."""
+    h, r, t, st = rows
+    dev = h.device
+    b, m, d, s = _check_pooled(q_emb, h, r, t, st, dev)
+    w = _kernel_weights(bundle, weights, d, s, dev)
+    h_dim = w["w1t"].shape[0]
+    gate, bias = query_gate_bias(bundle["features"], q_emb)
+    scores = torch.empty((b, m), dtype=torch.float32, device=dev)
+    chunks = _edge_chunks(m, scratch_bytes_per_edge(d, h_dim, fused))
+    n = chunks[0][1]
+    scratch = [torch.empty((n, 2, d), dtype=torch.bfloat16, device=dev),
+               torch.empty((n, 2), dtype=torch.float32, device=dev)]
+    if fused:
+        scratch.append(torch.empty((n, 2, h_dim), dtype=torch.float32, device=dev))
+    for c0, c1 in chunks:
+        _launch(
+            source, entry, name,
+            _ptr(h, c0 * d), _ptr(r, c0 * d), _ptr(t, c0 * d), _ptr(st, c0 * s), _ptr(gate), _ptr(bias),
+            *_weight_args(w, "w1_tiles"), *(_ptr(x) for x in scratch), _ptr(scores, c0), m,
+            b, c1 - c0, d, h_dim, s, _stream(dev),
+        )
+    return scores
 
 
 def _check_pooled(q_emb, head_repr, rel_repr, tail_repr, struct_raw, dev) -> tuple[int, int, int, int]:
@@ -475,24 +562,20 @@ def score_bidirectional(
     """[B, M] f32 twin-view scores of every query over one shared candidate
     set (``pallas_score_bidirectional`` with the query axis written out).
 
-    CUDA tensors launch ``csrc/score_bidirectional.cu``; CPU tensors take
-    the plain version (``score_bidirectional_reference``).
+    CUDA tensors launch ``csrc/score_bidirectional.cu`` once per chunk of
+    candidates; CPU tensors take the plain version
+    (``score_bidirectional_reference``).  Device scratch per call: sc and
+    nav, ``scratch_bytes_per_edge(D, H, False)`` bytes per candidate (4 KB +
+    8 B at D = 1024: 512 MiB at M = 131,072), M chunked so that it stays
+    within ``SCRATCH_BYTES`` (1 GiB), besides the [B, M] f32 scores.
     """
     dev = _device_of("score_bidirectional", head_repr)
     if dev.type == "cpu":
         return score_bidirectional_reference(
             bundle, q_emb, head_repr, rel_repr, tail_repr, struct_raw, weights=weights
         )
-    b, m, d, s = _check_pooled(q_emb, head_repr, rel_repr, tail_repr, struct_raw, dev)
-    w = _kernel_weights(bundle, weights, d, s, dev)
-    h_dim = w["w1t"].shape[0]
-    gate, bias = query_gate_bias(bundle["features"], q_emb)
-    scores = torch.empty((b, m), dtype=torch.float32, device=dev)
-    _launch(
-        SCORE_SOURCE, "sb_forward", "score_bidirectional",
-        _ptr(head_repr), _ptr(rel_repr), _ptr(tail_repr), _ptr(struct_raw),
-        _ptr(gate), _ptr(bias), *_weight_args(w), _ptr(scores), b, m, d, h_dim, s, _stream(dev),
-    )
+    scores = _pooled_scores(SCORE_SOURCE, "sb_forward", "score_bidirectional", bundle, q_emb,
+                            (head_repr, rel_repr, tail_repr, struct_raw), weights, fused=False)
     score_bidirectional.launches += 1
     return scores
 
@@ -515,12 +598,7 @@ def query_topk_per_query(
     )
     if scores.device.type == "cpu":
         return topk_desc(scores, k)
-    b, m = scores.shape
-    vals = torch.empty((b, k), dtype=torch.float32, device=scores.device)
-    ids = torch.empty((b, k), dtype=torch.int32, device=scores.device)
-    _launch(SCORE_SOURCE, "sb_select", "query_topk_per_query",
-            _ptr(scores), _ptr(vals), _ptr(ids), b, m, k, _stream(scores.device))
-    return vals, ids
+    return _select(scores, k, "query_topk_per_query")
 
 
 def query_topk_fused(
@@ -536,28 +614,24 @@ def query_topk_fused(
     once per candidate tile for all B queries.  Returns ([B, k] f32,
     [B, k] int32) ordered (score desc, index asc).
 
-    CUDA tensors launch ``csrc/pooled_query.cu`` (scores, then an exact
-    select); CPU tensors take the plain version (``query_topk_fused_reference``).
+    CUDA tensors launch ``csrc/pooled_query.cu`` once per chunk of
+    candidates (scores), then one exact select; CPU tensors take the plain
+    version (``query_topk_fused_reference``).  Device scratch per call: sc,
+    nav and the per-edge terms c, ``scratch_bytes_per_edge(D, H, True)``
+    bytes per candidate (12 KB + 8 B at D = H = 1024), M chunked so that it
+    stays within ``SCRATCH_BYTES`` (1 GiB: chunks of 87,296 candidates at
+    that width), besides the [B, M] f32 scores (64 MiB at B = 128,
+    M = 131,072).
     """
     dev = _device_of("query_topk_fused", index.head_repr)
     _check_k(k, index.num_candidates)
     if dev.type == "cpu":
         return query_topk_fused_reference(bundle, q_emb, index, k=k, weights=weights)
-    h, r, t, st = index.head_repr, index.rel_repr, index.tail_repr, index.struct_raw
-    b, m, d, s = _check_pooled(q_emb, h, r, t, st, dev)
-    w = _kernel_weights(bundle, weights, d, s, dev)
-    h_dim = w["w1t"].shape[0]
-    gate, bias = query_gate_bias(bundle["features"], q_emb)
-    scores = torch.empty((b, m), dtype=torch.float32, device=dev)
-    vals = torch.empty((b, k), dtype=torch.float32, device=dev)
-    ids = torch.empty((b, k), dtype=torch.int32, device=dev)
-    _launch(
-        POOLED_SOURCE, "pq_forward", "query_topk_fused",
-        _ptr(h), _ptr(r), _ptr(t), _ptr(st), _ptr(gate), _ptr(bias), *_weight_args(w),
-        _ptr(scores), _ptr(vals), _ptr(ids), b, m, d, h_dim, s, k, _stream(dev),
-    )
+    rows = (index.head_repr, index.rel_repr, index.tail_repr, index.struct_raw)
+    scores = _pooled_scores(POOLED_SOURCE, "pq_forward", "query_topk_fused", bundle, q_emb, rows, weights,
+                            fused=True)
     query_topk_fused.launches += 1
-    return vals, ids
+    return _select(scores, k, "query_topk_fused")
 
 
 per_question_topk.launches = 0

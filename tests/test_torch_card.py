@@ -130,9 +130,10 @@ def _hold_topk(vals, ids, scores, k, tol):
             assert abs(s[b, e] - kth) < tol, (b, e)
 
 
-@pytest.mark.parametrize("d,m", [(64, 1000), (64, 4096), (1024, 1000), (1024, 4096)])
-def test_pooled_kernels_match_plain_versions(cuda, d, m):
-    bundle = _bundle(d, d, 20, seed=d + m)
+@pytest.mark.parametrize("d,h,m", [(64, 64, 1000), (64, 64, 4096), (256, 256, 1000), (512, 512, 4096),
+                                   (1024, 1024, 1000), (1024, 1024, 4096), (64, 1024, 1000)])
+def test_pooled_kernels_match_plain_versions(cuda, d, h, m):
+    bundle = _bundle(d, h, 20, seed=d + h + m)
     q, index = _pooled_case(cuda, 3, m, d, seed=m)
     args = (bundle, q, index.head_repr, index.rel_repr, index.tail_repr, index.struct_raw)
     before = (sk.score_bidirectional.launches, sk.query_topk_fused.launches)
@@ -145,6 +146,41 @@ def test_pooled_kernels_match_plain_versions(cuda, d, m):
     np.testing.assert_allclose(dense.cpu().numpy(), plain1.cpu().numpy(), rtol=0, atol=1e-3)
     _hold_topk(vals1, ids1, plain1, 20, 1e-3)
     _hold_topk(vals2, ids2, sk.fused_scores_reference(*args), 20, 1e-3)
+
+
+def _hold_pooled(bundle, q, index, k):
+    """Both pooled kernels against their plain versions (dense scores of
+    kernel 1 and the top-k of both)."""
+    args = (bundle, q, index.head_repr, index.rel_repr, index.tail_repr, index.struct_raw)
+    dense = sk.score_bidirectional(*args)
+    vals2, ids2 = sk.query_topk_fused(bundle, q, index, k=k)
+    torch.cuda.synchronize()
+    plain1 = sk.score_bidirectional_reference(*args)
+    np.testing.assert_allclose(dense.cpu().numpy(), plain1.cpu().numpy(), rtol=0, atol=1e-3)
+    vals1, ids1 = sk.query_topk_per_query(bundle, q, index, k=k)
+    _hold_topk(vals1, ids1, plain1, k, 1e-3)
+    _hold_topk(vals2, ids2, sk.fused_scores_reference(*args), k, 1e-3)
+
+
+@pytest.mark.parametrize("m", [1, 63, 65, 1000, 4096])
+@pytest.mark.parametrize("b", [1, 3, 130])
+def test_pooled_kernels_ragged_shapes(cuda, m, b):
+    """Ragged candidate tiles (M not a multiple of 128) and query groups (B
+    not a multiple of 8) are masked, never read past."""
+    bundle = _bundle(128, 256, 20, seed=m + b)
+    q, index = _pooled_case(cuda, b, m, 128, seed=7 * m + b)
+    _hold_pooled(bundle, q, index, min(m, 10))
+
+
+def test_pooled_kernels_chunk_the_scratch(cuda, monkeypatch):
+    """A scratch limit below the call's need splits M into chunks (of 256
+    candidates here) with the same results."""
+    d = h = 256
+    monkeypatch.setattr(sk, "SCRATCH_BYTES", 300 * sk.scratch_bytes_per_edge(d, h, True))
+    assert len(sk._edge_chunks(1000, sk.scratch_bytes_per_edge(d, h, True))) == 4
+    bundle = _bundle(d, h, 20, seed=9)
+    q, index = _pooled_case(cuda, 5, 1000, d, seed=9)
+    _hold_pooled(bundle, q, index, 20)
 
 
 def test_pooled_kernels_break_ties_by_lower_index(cuda):
