@@ -13,10 +13,12 @@ Phases, each printed as it runs:
 3. kernel vs plain version at full width (D = H = 1024, S = 20, G = 16,
    k = 100, M in {256, 1024, 2048, 4096}, random prefix lengths including one
    below k and one of 0): max score error, id agreement under the near-tie
-   rule, and the kernel's, the plain version's and the bound's times;
-   The same phase checks that the kernel's output on a fixed input is bit
-   for bit what it was before its device code moved into
-   ``csrc/twin_score.cuh`` (``PQT_DIGEST``);
+   rule, the kernel's, the plain version's and the bound's times, and the
+   kernel's TFLOP/s (as it does the work, whole tiles of 128 edges, and as
+   the bound counts it, valid edges); then the kernel's output on a fixed
+   input against its pinned digest (``PQT_DIGEST``: bit for bit the same
+   from run to run and from change to change) and the ptxas report of its
+   wgmma kernel;
 4. ``serve_split`` end to end on the realistic synthetic split (128-1024
    nodes, ~3 extra edges per node, 16384 entities, 64 relations, seed 7,
    D = 1024, k = 100): launch counts, the top-k of every question held to
@@ -39,11 +41,15 @@ Phases, each printed as it runs:
    does the work and as the bound counts it), bound, plain version's ms,
    and the ptxas report of the wgmma kernels.
 
-``python3 chip_smoke.py --ablation [M]`` runs only an ablation of the two
+``python3 chip_smoke.py --ablation [M]`` runs only an ablation of the three
 wgmma kernels instead: each source built again with a switch of
-``csrc/twin_wgmma.cuh`` (``WG_NO_MMA``: no wgmma; ``WG_NO_EPI``: no epilogue)
-and timed against the full build at B = 128 queries over M candidates
-(default 32,768), scaled to the headline's 131,072.  The switched builds
+``csrc/twin_wgmma.cuh`` (``WG_NO_MMA``: no wgmma; ``WG_NO_EPI``: no epilogue;
+``WG_NO_BUILD``: zero A rows sent without loads or math) and timed against the
+full build, the pooled ones at B = 128 queries over M
+candidates (default 32,768, scaled to the headline's 131,072), the
+per-question one at phase 3's G = 16, M = 2048 input, where the full build
+is also timed with one cluster per (question, tile) against its persistent
+clusters (and must give bitwise the same output).  The switched builds
 compute wrong scores; they only show where the time goes.
 
 Then a line ``{"kernels": [...]}``, the nvidia-smi line, and as the last line
@@ -178,6 +184,15 @@ def kernel_bound(lengths, m: int, d: int, h: int, s: int, k: int) -> tuple[float
     return roofline(bytes_, tc_flops, f32_flops)
 
 
+def per_question_flops(lengths, m: int, d: int, h: int) -> tuple[float, float]:
+    """Tensor FLOP of one per-question launch: (as the kernel does it, every
+    row of each live tile of 128 edges, zero rows included; as the bound
+    counts it, valid edges), [inter|sc|err] @ W1[:3D] in two directions."""
+    live = [min(max(int(n), 0), m) for n in lengths]
+    per_edge = 2 * 3 * 2 * d * h
+    return sum(-(-n // 128) * 128 for n in live) * per_edge, sum(live) * per_edge
+
+
 def pooled_bounds(b: int, m: int, d: int, h: int, s: int, k: int) -> dict[str, tuple[float, str]]:
     """Least time of one launch of each pooled kernel over b queries and m
     shared candidates.  Inputs: the bf16 index rows once, the weights, the
@@ -301,19 +316,24 @@ def phase_kernel(bundle_np, seed: int = 5):
         ms = cuda_ms(lambda: sk.per_question_topk(*args, k=K, weights=w), iters)
         plain_ms = cuda_ms(lambda: sk.per_question_topk_reference(*args, k=K, weights=w), max(2, iters // 4))
         bound_ms, bound_by = kernel_bound(lens, m, D, H, S, K)
+        done, counted = per_question_flops(lens, m, D, H)
         row = dict(M=m, G=G, valid_edges=int(np.minimum(lens, m).sum()), max_abs_err=max_err,
-                   near_tie_swaps=swaps, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                   near_tie_swaps=swaps, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   tflops_as_done=done / ms / 1e9, tflops_bound_count=counted / ms / 1e9)
         rows.append(row)
         log(f"[3 kernel] G={G} M={m} valid_edges={row['valid_edges']} max_abs_err={max_err:.3e} "
             f"(tol {ATOL}) near_tie_swaps={swaps} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={bound_ms:.4f} ({bound_by}) bound/ms={bound_ms / ms:.3f}")
+            f"bound_ms={bound_ms:.4f} ({bound_by}) bound/ms={bound_ms / ms:.3f} TFLOP/s "
+            f"{row['tflops_as_done']:.1f} as done, {row['tflops_bound_count']:.1f} as the bound counts")
         del h, r, t, struct, scores
     from evi_rag_tpu_torch.testing import PQT_DIGEST, pqt_digest
 
     digest = pqt_digest(dev)
     if digest != PQT_DIGEST:
         raise AssertionError(f"per_question_topk output changed: digest {digest} != {PQT_DIGEST}")
-    log(f"[3 kernel] output on the fixed input is bit for bit the pre-header kernel's (sha256 {digest[:16]}...)")
+    log(f"[3 kernel] output on the fixed input matches its pinned digest (sha256 {digest[:16]}...)")
+    for ln in wgmma_ptxas([sk.KERNEL_SOURCE]):
+        log(f"[3 kernel] ptxas {ln}")
     return rows
 
 
@@ -645,7 +665,7 @@ def phase_pooled(bundle_np):
             f"{score_ms[name]:.3f}) bound_ms {bounds[name][0]:.3f} ({bounds[name][1]}) "
             f"bound/ms {bounds[name][0] / ms[name]:.3f} plain_ms {plain_ms[name]:.3f}; scoring at "
             f"{tflops[name][0]:.1f} TFLOP/s as done, {tflops[name][1]:.1f} as the bound counts")
-    ptxas = wgmma_ptxas()
+    ptxas = wgmma_ptxas([sk.SCORE_SOURCE, sk.POOLED_SOURCE])
     for ln in ptxas:
         log(f"[6 pooled] ptxas {ln}")
     return dict(index_build_s=index_build_s, qps=qps, launches=launches, ms=ms, plain_ms=plain_ms,
@@ -655,14 +675,14 @@ def phase_pooled(bundle_np):
                 differing_ids={"per_query": diff1, "fused": diff2}, ptxas=ptxas)
 
 
-def wgmma_ptxas() -> list[str]:
-    """The ptxas report (registers, spills) of each wgmma kernel, with its
-    dynamic shared memory."""
+def wgmma_ptxas(sources) -> list[str]:
+    """The ptxas report (registers, spills) of each wgmma kernel of
+    ``sources``, with its dynamic shared memory (the same for every mode)."""
     from evi_rag_tpu_torch.ops import _build, score_kernels as sk
 
     smem = sk._lib(sk.SCORE_SOURCE).sb_wg_smem_bytes()
     out = []
-    for source in (sk.SCORE_SOURCE, sk.POOLED_SOURCE):
+    for source in sources:
         lines = _build.BUILD_LOG.get(source, "").splitlines()
         for i, ln in enumerate(lines):
             if "Compiling entry" in ln and "wg_kernel" in ln:
@@ -673,14 +693,19 @@ def wgmma_ptxas() -> list[str]:
     return out
 
 
-ABLATIONS = {"full": [], "no_epilogue": ["-DWG_NO_EPI"], "no_wgmma": ["-DWG_NO_MMA"]}
+ABLATIONS = {"full": [], "no_epilogue": ["-DWG_NO_EPI"], "no_wgmma": ["-DWG_NO_MMA"],
+             "no_row_build": ["-DWG_NO_BUILD"]}
+# Built for the per-question kernel only: its GELU priced, and the clock64 trace.
+PQT_VARIANTS = {"gelu_identity": ["-DWG_GELU_ID"], "trace": ["-DWG_TRACE"]}
 
 
 def phase_ablation(m: int) -> None:
-    """Each wgmma kernel built with each ablation switch, timed in turns at
-    B = POOLED_B over m random candidates."""
+    """Each wgmma kernel built with each ablation switch, timed in turns: the
+    pooled ones at B = POOLED_B over m random candidates, the per-question
+    one at G = 16, M = REPORT_M (phase 3's input)."""
     import ctypes
 
+    import numpy as np
     import torch
 
     from evi_rag_tpu_torch.ops import _build, score_kernels as sk
@@ -689,12 +714,13 @@ def phase_ablation(m: int) -> None:
     out = _build.BUILD_DIR / "ablation"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for source in (sk.SCORE_SOURCE, sk.POOLED_SOURCE):
-        for name, flags in ABLATIONS.items():
-            lib = out / f"{source}.{name}.so"
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib), str(_build.CSRC / source)]
-            procs[source, name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                                         text=True))
+    variants = [(source, name, flags) for source in sk.KERNEL_SOURCES for name, flags in ABLATIONS.items()]
+    variants += [(sk.KERNEL_SOURCE, name, flags) for name, flags in PQT_VARIANTS.items()]
+    for source, name, flags in variants:
+        lib = out / f"{source}.{name}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib), str(_build.CSRC / source)]
+        procs[source, name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                                     text=True))
     for (source, name), (lib, proc) in procs.items():
         log_text = proc.communicate()[0]
         if proc.returncode:
@@ -713,6 +739,104 @@ def phase_ablation(m: int) -> None:
             log(f"[ablation] {source} {name}: {ms:.3f} ms at B = {POOLED_B}, M = {m}; "
                 f"{ms * POOLED_M / m:.1f} ms scaled to M = {POOLED_M}")
         sk._LIBS.pop(source)
+    del rows, q
+
+    # The per-question kernel at phase 3's shape and lengths (same seeds).
+    rng = np.random.default_rng(5)
+    for shape_m in SHAPES_M:  # phase 3 draws each shape's lengths in turn
+        lens = rng.integers(K // 2, shape_m + 1, size=G)
+        if shape_m == REPORT_M:
+            break
+    lens[0], lens[1], lens[2] = REPORT_M, 37, 0
+    lengths = torch.as_tensor(lens.astype(np.int32), device=dev)
+    rand = lambda *shape: torch.tanh(torch.randn(*shape, device=dev, generator=gen))
+    args = (bundle, torch.randn(G, D, device=dev, generator=gen),
+            *(rand(G, REPORT_M, D).to(torch.bfloat16) for _ in range(3)),
+            torch.rand(G, REPORT_M, S, device=dev, generator=gen).to(torch.bfloat16), lengths)
+    live_tiles = int(sum(-(-min(int(n), REPORT_M) // 128) for n in lens))
+    pqt = lambda: sk.per_question_topk(*args, k=K, weights=w)
+    for name in [*ABLATIONS, *(v for v in PQT_VARIANTS if v != "trace")]:
+        sk._LIBS[sk.KERNEL_SOURCE] = sk.type_entries(ctypes.CDLL(str(procs[sk.KERNEL_SOURCE, name][0])),
+                                                     sk.KERNEL_SOURCE)
+        ms = cuda_ms(pqt, 20)
+        log(f"[ablation] {sk.KERNEL_SOURCE} {name}: {ms:.4f} ms at G = {G}, M = {REPORT_M} "
+            f"({live_tiles} live tiles of 128 edges)")
+        if name != "full":
+            continue
+        want = pqt()
+        sk.PQT_CLUSTERS = G * (-(-REPORT_M // 128))  # one cluster per (question, tile), dead ones return at once
+        try:
+            per_tile_ms = cuda_ms(pqt, 20)
+            got = pqt()
+        finally:
+            sk.PQT_CLUSTERS = 0
+        if not (torch.equal(want[0], got[0]) and torch.equal(want[1], got[1])):
+            raise AssertionError("the two schedules of the per-question kernel gave other bits")
+        log(f"[ablation] {sk.KERNEL_SOURCE} full, one cluster per (question, tile): {per_tile_ms:.4f} ms "
+            f"(persistent clusters {ms:.4f} ms); bitwise the same output")
+        for kname, kms in launch_device_ms(pqt, 10).items():
+            log(f"[ablation] {sk.KERNEL_SOURCE} full, device ms per call: {kms:.4f}  {kname[:80]}")
+    lib = sk.type_entries(ctypes.CDLL(str(procs[sk.KERNEL_SOURCE, "trace"][0])), sk.KERNEL_SOURCE)
+    sk._LIBS[sk.KERNEL_SOURCE] = lib
+    pqt()
+    pqt()
+    torch.cuda.synchronize()
+    marks = np.zeros(512 * 8 + 16 * 4, np.int64)
+    lib.wg_trace_read.argtypes = [ctypes.c_void_p]
+    if lib.wg_trace_read(marks.ctypes.data):
+        raise RuntimeError("reading the trace failed")
+    report_trace(marks, D // 64)
+    sk._LIBS.pop(sk.KERNEL_SOURCE)
+
+
+def report_trace(marks, kc: int) -> None:
+    """Where the first CTA's clock64 marks (WG_TRACE) say its steps and
+    epilogues spend their cycles: per step kind (inter, struct, err) the
+    median of each wait, and per work item the epilogue's exchanges."""
+    import numpy as np
+
+    steps = marks[: 512 * 8].reshape(512, 8)
+    n = int((steps[:, 4] > 0).sum())
+    steps = steps[:n].astype(np.float64)
+    epi = marks[512 * 8:].reshape(16, 4).astype(np.float64)
+    epi = epi[epi[:, 3] > 0]
+    names = {"consumer W1 wait": (0, 1), "consumer A wait": (1, 2), "consumer wgmma": (2, 3),
+             "consumer release+refill": (3, 4), "builder empty wait": (5, 6), "builder build+push": (6, 7)}
+    kind = (np.arange(n) % (3 * kc)) // kc
+    out = {"steps": n, "items": len(epi), "cycles": float(steps[-1, 4] - steps[0, 0])}
+    for k, label in enumerate(("inter", "struct", "err")):
+        sel = steps[kind == k]
+        step_len = np.diff(steps[:, 0])[kind[:-1] == k]
+        row = {name: float(np.median(sel[:, b] - sel[:, a])) for name, (a, b) in names.items()}
+        row["step"] = float(np.median(step_len))
+        out[label] = row
+        log(f"[trace] {label} steps: median cycles " + ", ".join(f"{k2} {v:.0f}" for k2, v in row.items()))
+    if len(epi):
+        parts = {"z + exchange 1": np.median(epi[:, 1] - epi[:, 0]), "LN var + exchange 2": np.median(epi[:, 2] - epi[:, 1]),
+                 "GELU, head + exchange 3": np.median(epi[:, 3] - epi[:, 2])}
+        out["epilogue"] = {k2: float(v) for k2, v in parts.items()}
+        log("[trace] epilogue per item: median cycles " + ", ".join(f"{k2} {v:.0f}" for k2, v in parts.items()))
+    log(f"[trace] first CTA: {n} steps, {len(epi)} items, {out['cycles']:.0f} cycles in the mainloop and epilogues")
+    (OUT_DIR / "pqt_trace.json").write_text(json.dumps({"summary": out, "marks": marks.tolist()}))
+
+
+def launch_device_ms(fn, calls: int) -> dict[str, float]:
+    """Device ms per call of each kernel ``fn`` launches (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if dev_us and ev.key and not ev.key.startswith(("aten::", "cuda")):
+            out[ev.key] = dev_us / 1e3 / calls
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
 def main() -> int:
@@ -756,6 +880,8 @@ def main() -> int:
         "bound_ms": rep["bound_ms"],
         "bound_by": rep["bound_by"],
         "library_ms": None,
+        "tflops_as_done": rep["tflops_as_done"],
+        "tflops_bound_count": rep["tflops_bound_count"],
         "shape": f"G={G} M={REPORT_M} D={D} H={H} S={S} k={K}",
     }]
     replaces = {"score_bidirectional": 104, "query_topk_fused": 290}

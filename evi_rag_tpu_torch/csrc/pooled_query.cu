@@ -37,7 +37,7 @@
 //
 // Rows per W1 byte fetched from L2: 128 in (c) (each W1i tile meets the u
 // rows, each W1e tile the r_ctx rows, of 128 edges), against 16 in the
-// mma.sync kernel before it; 256 in (b).  Shared memory 220,832 bytes per
+// mma.sync kernel before it; 256 in (b).  Shared memory 222,928 bytes per
 // CTA.  Scratch: 4 KB (sc) + 8 KB (c) + 8 B (nav) per edge at D = H = 1024.
 //
 // Bound at D = H = 1024: 2 x 2*D*H = 4.19 MFLOP per (edge, query), plus
@@ -68,7 +68,7 @@ extern "C" int pq_forward(
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   WgArgs a = {};
-  a.w = twin_weights(nullptr, w1d, b1, ln1s, ln1b, w2s, b2s, ws, bs, lnss, lnsb, wg, wgb, D, H, S);
+  a.w = twin_weights(w1d, b1, ln1s, ln1b, w2s, b2s, ws, bs, lnss, lnsb, wg, wgb, D, H, S);
   a.w1_tiles = static_cast<const __nv_bfloat16*>(w1_tiles);
   a.h = static_cast<const __nv_bfloat16*>(h);
   a.r = static_cast<const __nv_bfloat16*>(r);
@@ -83,7 +83,7 @@ extern "C" int pq_forward(
   a.M = M;
   a.B = B;
   cudaError_t err = launch_struct_rows(a.w, static_cast<const __nv_bfloat16*>(st),
-                                       static_cast<__nv_bfloat16*>(sc), nav, M, s);
+                                       static_cast<__nv_bfloat16*>(sc), nav, M, nullptr, M, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = launch_wg<kEdge>(a, s);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -26,7 +26,7 @@
 //
 // Rows per W1 byte fetched from L2: 256 (each 16 KB tile meets the fwd and
 // bwd rows of 128 edges), against 32 in the mma.sync kernel before it.
-// Shared memory 220,832 bytes per CTA (W1 ring 64 KB, A ring 96 KB,
+// Shared memory 222,928 bytes per CTA (W1 ring 64 KB, A ring 96 KB,
 // exchange 48 KB; one CTA per SM, 384 threads).  Scratch: 4 KB + 8 B per
 // edge at D = 1024 (sc and nav; the wrapper chunks M to keep it within its
 // limit).
@@ -34,7 +34,7 @@
 // Bound at D = H = 1024, B = 128, M = 131,072: 8.4 MFLOP per (edge, query)
 // (inter and err products, two directions) plus 4.2 MFLOP per edge, 1.41e14
 // FLOP, 142.9 ms at 989 TFLOP/s: the tensor cores bound it.  This kernel
-// keeps sc @ W1s per query (as score_kernel), so it does 2.1e14 FLOP and
+// keeps sc @ W1s per query (as the per-question kernel), so it does 2.1e14 FLOP and
 // can reach at most 67% of that bound.  Measured on the H100 it is bound by
 // neither: the mainloop runs at the same speed with its wgmma switched off
 // (chip_smoke.py --ablation, PERF.md), so the per-step pipeline of A rows
@@ -61,7 +61,7 @@ extern "C" int sb_forward(
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   WgArgs a = {};
-  a.w = twin_weights(nullptr, w1d, b1, ln1s, ln1b, w2s, b2s, ws, bs, lnss, lnsb, wg, wgb, D, H, S);
+  a.w = twin_weights(w1d, b1, ln1s, ln1b, w2s, b2s, ws, bs, lnss, lnsb, wg, wgb, D, H, S);
   a.w1_tiles = static_cast<const __nv_bfloat16*>(w1_tiles);
   a.h = static_cast<const __nv_bfloat16*>(h);
   a.r = static_cast<const __nv_bfloat16*>(r);
@@ -75,7 +75,7 @@ extern "C" int sb_forward(
   a.M = M;
   a.B = B;
   cudaError_t err = launch_struct_rows(a.w, static_cast<const __nv_bfloat16*>(st),
-                                       static_cast<__nv_bfloat16*>(sc), nav, M, s);
+                                       static_cast<__nv_bfloat16*>(sc), nav, M, nullptr, M, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_wg<kScore>(a, s));
 }

@@ -1,8 +1,8 @@
-// Hopper (sm_90a) device code shared by the two pooled-query kernels,
-// score_bidirectional.cu and pooled_query.cu: a wgmma mainloop fed with
-// pre-swizzled W1 tiles by bulk async copies, A rows built once per cluster
-// and pushed to every CTA of it, and an epilogue that runs LayerNorm over H
-// across the cluster.
+// Hopper (sm_90a) device code shared by the three scoring kernels,
+// per_question_topk.cu, score_bidirectional.cu and pooled_query.cu: a wgmma
+// mainloop fed with pre-swizzled W1 tiles by bulk async copies, A rows built
+// once per cluster and pushed to every CTA of it, and an epilogue that runs
+// LayerNorm over H across the cluster.
 //
 // The functions (what each mode computes) are those of twin_score.cuh's
 // header note; only the schedule differs.
@@ -30,6 +30,8 @@
 //     which completes the receiving CTA's slot barrier; consumers release a
 //     slot by arriving on every CTA's "empty" barrier of that slot.  So the
 //     row build (CUDA cores) is done once per cluster, not once per CTA.
+//     (Storing the rows locally and sending them with one shared-to-shared
+//     bulk copy per peer and accumulator was slower on the H100.)
 //   * Rows per W1 byte fetched from L2: 256 in kScore (each tile meets the
 //     fwd and bwd rows of 128 edges) and kEdge ([sc_f|hmt] and [sc_b|-hmt]
 //     rows); 128 in kPooled (u rows against the W1i tile, r_ctx rows against
@@ -39,6 +41,14 @@
 //   kScore  (score_bidirectional.cu): acc0 = [inter_f|sc_f|err_f] @ W1[:3D],
 //           acc1 = the bwd rows; epilogue z = acc + dist*w1d + b1, then
 //           LayerNorm over H, GELU, folded head, combine -> scores.
+//   kQuestion (per_question_topk.cu): kScore's rows and epilogue, per
+//           question g over its own candidates (rows g*M + m) and its own
+//           gate/bias row, on the live tiles only (below) -> scores [G, M].
+//           Its struct pre-pass writes sc as the A-chunk images of each tile
+//           (the bytes a slot holds on a struct step), so on the D/64 struct
+//           steps rank 0 fills every CTA's slot with one 32 KB
+//           cp.async.bulk ... multicast::cluster and the builders push
+//           nothing.
 //   kEdge   (pooled_query.cu, per candidate): acc0 = sc_f @ W1s + hmt @ W1e,
 //           acc1 = sc_b @ W1s - hmt @ W1e; epilogue c_{f,b} = acc + b1 ->
 //           scratch [M, 2, H] f32.
@@ -46,17 +56,36 @@
 //           r_ctx @ W1e; epilogue z_{f,b} = nav_{f,b}*zi + zr + c_{f,b} +
 //           dist_{f,b}*w1d, then as kScore.
 //
+// Work items.  kScore and kPooled: a cluster walks up to kQueriesPerCta
+// queries over one tile (grid (cH, query groups, tiles)).  kEdge: one tile.
+// kQuestion: the live tiles (question g, tile j with 128 j < min(len[g], M))
+// of all G questions, in (g, j) order, are cut into one contiguous range per
+// cluster (grid (cH * clusters)); every CTA of a cluster derives the same
+// list from the lengths (question_items), so their barriers stay in step,
+// and a cluster with no item returns before its first cluster_sync.  The W1
+// and A rings run on across a cluster's items, and the builders' prefetch of
+// the next step crosses into the next item's rows.  Edges of a partial tile
+// past the prefix are built as zero rows and their scores are not written
+// (the select reads positions past len[g] as -inf).
+//
 // Epilogue across the cluster: a row's LayerNorm sums (the mean, then the
-// squared deviations, as ln_gelu_head) and its head dot are summed over the
+// squared deviations) and its head dot are summed over the
 // CTA's 128 columns inside a lane quad, pushed to every CTA of the cluster
 // (st.async), and summed there in rank order; rank 0 writes the combined
 // score.
 //
 // Ablation switches (compile-time, for measurement only; the scores are then
-// wrong): WG_NO_MMA issues no wgmma, WG_NO_EPI skips the epilogue.
+// wrong): WG_NO_MMA issues no wgmma, WG_NO_EPI skips the epilogue,
+// WG_NO_BUILD has the builders push zero rows without loading or computing
+// them.
+// WG_GELU_ID replaces the epilogue's GELU by the identity.
+// WG_TRACE records clock64 marks of the first CTA's steps (consumer thread
+// 0 and builder thread 0) and epilogues into g_wg_trace (wg_trace_read).
 // `python3 chip_smoke.py --ablation` builds and times them.
 
 #pragma once
+
+#include <algorithm>
 
 #include "twin_score.cuh"
 
@@ -76,20 +105,36 @@ constexpr int kBuilders = 128;                        // warps 8-11
 constexpr int kWgThreads = kConsumers + kBuilders;
 constexpr int kMaxCluster = kMaxH / kSliceN;          // 8
 constexpr int kQueriesPerCta = 8;                     // queries one CTA walks (kScore, kPooled)
+constexpr int kMaxItems = 256;                        // work items one kQuestion cluster walks
 
-enum WgMode { kScore = 0, kEdge = 1, kPooled = 2 };
+enum WgMode { kScore = 0, kEdge = 1, kPooled = 2, kQuestion = 3 };
+
+// Modes whose A rows are [inter | sc | err] (the unfactorised form of
+// twin_score.cuh's header note).
+__host__ __device__ constexpr bool twin_rows(int mode) { return mode == kScore || mode == kQuestion; }
 
 struct WgArgs {
-  TwinWeights w;                       // w.w1t unused
+  TwinWeights w;
   const __nv_bfloat16* w1_tiles;       // [cH][3D/64][128][64], pre-swizzled
-  const __nv_bfloat16 *h, *r, *t;      // [M, D] candidate rows of this launch
-  const __nv_bfloat16 *gate, *bias;    // [B, D]
-  const __nv_bfloat16* sc;             // [M, 2, D] struct contexts (kScore, kEdge)
-  const float* nav;                    // [M, 2] nav gates
+  const __nv_bfloat16 *h, *r, *t;      // candidate rows [M, D] (kQuestion: [G * M, D])
+  const __nv_bfloat16 *gate, *bias;    // [B, D] (kQuestion: [G, D])
+  const __nv_bfloat16* sc;             // struct contexts: [rows, 2, D] (kScore, kEdge); kQuestion: the
+                                       // A-chunk images [G * ceil(M/128)][D/64][32 KB] (struct_rows_kernel)
+  const float* nav;                    // [rows, 2] nav gates
   float* c;                            // [M, 2, H] per-edge terms (kEdge writes, kPooled reads)
   float* scores;                       // score (b, m) at scores[b * ld_scores + m]
+  const int* lengths;                  // [G] valid prefix of each question (kQuestion)
   long long ld_scores;
-  int M, B;
+  int M, B, G;                         // kQuestion: M candidates per question, G questions
+};
+
+// One tile of a cluster's walk: queries' gate/bias row q, the candidate row
+// of the tile's edge 0, the tile's first edge m0 (scores go to
+// scores[q * ld + m0 + e]), and the edges below which rows are live.
+struct WgItem {
+  int q;
+  long long row0;
+  int m0, lim;
 };
 
 // Shared memory, from a 1024-byte aligned base.
@@ -104,8 +149,24 @@ constexpr int kSmemBar = kSmemWts + 5 * kSliceN * 4;
 constexpr int kBarWFull = 0, kBarWEmpty = kStages, kBarAFull = 2 * kStages, kBarAEmpty = kBarAFull + kASlots;
 constexpr int kBarX = kBarAEmpty + kASlots, kBars = kBarX + 6;
 constexpr int kDistBytes = 2 * kEdgesCTA * 4;                      // a query's dist, sent with its last step
-constexpr int kSmemEnd = kSmemBar + kBars * 8;
+constexpr int kSmemItems = kSmemBar + kBars * 8;                  // [kMaxItems] int2 (kQuestion)
+constexpr int kSmemWsum = kSmemItems + kMaxItems * 8;              // [kWgThreads / 32] int
+constexpr int kSmemEnd = kSmemWsum + (kWgThreads / 32) * 4;
 constexpr size_t kWgSmemBytes = kSmemEnd + 1024;                   // + alignment slack
+
+#ifdef WG_TRACE
+constexpr int kTraceSteps = 512, kTraceItems = 16;
+constexpr int kTraceEpi = kTraceSteps * 8;  // [step][8] marks, then [item][4] epilogue marks
+__device__ long long g_wg_trace[kTraceEpi + kTraceItems * 4];
+#define WG_MARK(on, idx) \
+  do {                   \
+    if (on) g_wg_trace[idx] = clock64(); \
+  } while (0)
+#else
+#define WG_MARK(on, idx) \
+  do {                   \
+  } while (0)
+#endif
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -161,6 +222,17 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// `bytes` from global `src` to local shared address `dst` in every CTA of
+// `mask`, completing the barrier at the same offset in each.
+__device__ __forceinline__ void bulk_copy_multicast(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar,
+                                                    uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster [%0], [%1], %2, [%3], "
+      "%4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "h"(mask)
       : "memory");
 }
 
@@ -253,11 +325,20 @@ __device__ __forceinline__ uint4 ldg16(const __nv_bfloat16* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
+// The epilogue's GELU (twin_score.cuh's gelu_erf unless a switch says otherwise).
+__device__ __forceinline__ float epi_gelu(float x) {
+#ifdef WG_GELU_ID
+  return x;
+#else
+  return gelu_erf(x);
+#endif
+}
+
 // Which W1 chunk (of the 3D/64 in a column slice) the i-th tile of one
 // query's (or, for kEdge, one edge tile's) mainloop is.
 template <int kMode>
 __device__ __forceinline__ int tile_chunk(int i, int kc) {
-  if (kMode == kScore) return i;                        // W1[:3D] in order
+  if (twin_rows(kMode)) return i;                       // W1[:3D] in order
   if (kMode == kEdge) return kc + i;                    // W1s, then W1e
   return (i & 1) ? 2 * kc + (i >> 1) : (i >> 1);        // W1i, W1e, W1i, W1e, ...
 }
@@ -266,10 +347,11 @@ __device__ __forceinline__ int tile_chunk(int i, int kc) {
 // 8u .. 8u+8 of the step's chunk): h, r, t, gate, bias (v[0..4]), or sc_f,
 // sc_b (v[0], v[1]) on struct steps.
 template <int kMode>
-__device__ __forceinline__ void load_units(const WgArgs& p, int me, int s, int kc, int q, int u, uint4 (&v)[5]) {
+__device__ __forceinline__ void load_units(const WgArgs& p, size_t me, int s, int kc, int q, int u,
+                                           uint4 (&v)[5]) {
   const size_t D = p.w.D;
   const int c = (kMode == kPooled ? s : s % kc) * kChunkK + 8 * u;
-  if ((kMode == kScore && s / kc == 1) || (kMode == kEdge && s < kc)) {
+  if ((twin_rows(kMode) && s / kc == 1) || (kMode == kEdge && s < kc)) {
     v[0] = ldg16(p.sc + (2 * (size_t)me) * D + c);
     v[1] = ldg16(p.sc + (2 * (size_t)me + 1) * D + c);
     return;
@@ -284,14 +366,15 @@ __device__ __forceinline__ void load_units(const WgArgs& p, int me, int s, int k
 }
 
 // The two A units (acc0's, acc1's) of step s from load_units' v, and their
-// err sums (kScore err steps, kPooled) added to df / db.  The rounding points
-// are the mma.sync kernels' (score_kernel for kScore, pooled_kernel's
-// factorised rows otherwise).
+// err sums (kScore / kQuestion err steps, kPooled) added to df / db.  The
+// rounding points are those of the plain versions
+// (per_question_scores_reference for kScore and kQuestion,
+// fused_scores_reference's factorised rows otherwise).
 template <int kMode>
 __device__ __forceinline__ void build_units(const uint4 (&v)[5], int s, int kc, uint4& o0, uint4& o1, float& df,
                                             float& db, float navf, float navb) {
   const int seg = kMode == kPooled ? 0 : s / kc;
-  if ((kMode == kScore && seg == 1) || (kMode == kEdge && seg == 0)) {
+  if ((twin_rows(kMode) && seg == 1) || (kMode == kEdge && seg == 0)) {
     o0 = v[0];
     o1 = v[1];
     return;
@@ -312,8 +395,8 @@ __device__ __forceinline__ void build_units(const uint4 (&v)[5], int s, int kc, 
     unpack8(v[4], b8);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      if (kMode == kScore) {
-        // Separate roundings (no FMA contraction), as score_kernel.
+      if (twin_rows(kMode)) {
+        // Separate roundings (no FMA contraction), as the plain version.
         const float rc = __fadd_rn(__fmul_rn(r8[j], g8[j]), b8[j]);
         if (seg == 0) {
           x0[j] = __fmul_rn(__fmul_rn(__fmul_rn(h8[j], rc), t8[j]), navf);
@@ -342,21 +425,81 @@ __device__ __forceinline__ void build_units(const uint4 (&v)[5], int s, int kc, 
   o1 = pack8(x1);
 }
 
+// Live edges of question g: its prefix, within [0, M].
+__device__ __forceinline__ int question_lim(const WgArgs& p, int g) {
+  return min(max(__ldg(p.lengths + g), 0), p.M);
+}
+
+// kQuestion: fills items[] with this cluster's work items (g, j), the
+// cid-th of nclu contiguous ranges of the live tiles of all questions in
+// (g, j) order, and returns their count.  Every CTA of the cluster computes
+// the same list (integer sums only).  Thread t takes a slice of questions;
+// a block scan of the slices' tile counts places each slice's items.
+__device__ int question_items(const WgArgs& p, int cid, int nclu, int2* items, int* wsum) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per_t = (p.G + kWgThreads - 1) / kWgThreads;
+  const int g0 = min(p.G, tid * per_t), g1 = min(p.G, g0 + per_t);
+  auto tiles = [&](int g) { return (question_lim(p, g) + kEdgesCTA - 1) / kEdgesCTA; };
+  int cnt = 0;
+  for (int g = g0; g < g1; ++g) cnt += tiles(g);
+  int incl = cnt;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += v;
+  }
+  if (lane == 31) wsum[warp] = incl;
+  __syncthreads();
+  int a = incl - cnt, total = 0;  // a: global index of this thread's first item
+  for (int w = 0; w < kWgThreads / 32; ++w) {
+    if (w < warp) a += wsum[w];
+    total += wsum[w];
+  }
+  const int per = (total + nclu - 1) / nclu;
+  const int first = min(total, cid * per), last = min(total, first + per);
+  for (int g = g0; g < g1; ++g) {
+    const int t = tiles(g);
+    for (int j = max(0, first - a); j < min(t, last - a); ++j) items[a + j - first] = make_int2(g, j);
+    a += t;
+  }
+  __syncthreads();
+  return last - first;
+}
+
 template <int kMode>
 __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   const int D = p.w.D, H = p.w.H, kc = D / kChunkK;
-  const int rank = blockIdx.x, ranks = gridDim.x;
+  // kQuestion's grid x holds `clusters` clusters; the other modes' one.
+  const int ranks = kMode == kQuestion ? (H + kSliceN - 1) / kSliceN : gridDim.x;
+  const int rank = kMode == kQuestion ? blockIdx.x % ranks : blockIdx.x;
   const int col0 = rank * kSliceN;
-  const int m0 = blockIdx.z * kEdgesCTA;
+  const int tile_m0 = blockIdx.z * kEdgesCTA;
   const int q0 = kMode == kEdge ? 0 : blockIdx.y * kQueriesPerCta;
-  const int iters = kMode == kEdge ? 1 : min(kQueriesPerCta, p.B - q0);
-  const int steps = kMode == kScore ? 3 * kc : (kMode == kEdge ? 2 * kc : kc);
+  const int2* items = reinterpret_cast<const int2*>(smem + kSmemItems);
+  const int iters = kMode == kQuestion
+                        ? question_items(p, blockIdx.x / ranks, gridDim.x / ranks,
+                                         reinterpret_cast<int2*>(smem + kSmemItems),
+                                         reinterpret_cast<int*>(smem + kSmemWsum))
+                        : (kMode == kEdge ? 1 : min(kQueriesPerCta, p.B - q0));
+  if (kMode == kQuestion && iters == 0) return;  // the same in every CTA of the cluster: no barrier touched
+  // Work item it of this cluster's walk.
+  auto item = [&](int it) -> WgItem {
+    if (kMode == kQuestion) {
+      const int2 x = items[it];
+      return {x.x, (long long)x.x * p.M + x.y * kEdgesCTA, x.y * kEdgesCTA, question_lim(p, x.x)};
+    }
+    return {q0 + it, tile_m0, tile_m0, p.M};
+  };
+  const int steps = twin_rows(kMode) ? 3 * kc : (kMode == kEdge ? 2 * kc : kc);
   const int gsteps = iters * steps;
   const int tps = kMode == kPooled ? 2 : 1;              // W1 tiles per step
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+#ifdef WG_TRACE
+  const bool traced = blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0;
+#endif
   const uint32_t w_base = smem_u32(smem + kSmemW), a_smem = smem_u32(smem + kSmemA);
   const uint32_t bar0 = smem_u32(smem + kSmemBar);
   auto bar = [&](int i) { return bar0 + 8 * i; };
@@ -402,7 +545,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
   }
   cluster_sync();
 
-  const int tpi = steps * tps;                            // W1 tiles per query
+  const int tpi = steps * tps;                            // W1 tiles per work item
   const __nv_bfloat16* w_src = p.w1_tiles + (size_t)rank * 3 * kc * (kTileBytes / 2);
   auto issue_tile = [&](int i) {  // W1 tile i of this CTA's sequence into ring stage i % kStages
     const int st = i % kStages;
@@ -417,52 +560,77 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
     // ---- A builders: this CTA's share of the tile's edges, 8 threads per
     // edge (one 16-byte unit each), 16 edges per round (one round at
     // H > 896); each unit goes to every CTA of the cluster.  The raw units
-    // of the next step (first two rounds) load while this step waits for
-    // its slot and builds.
+    // of the next step (first round) load while this step waits for its
+    // slot and builds; they stay in registers (a runtime-indexed second
+    // round spilled both rounds to local memory, and each prefetch then
+    // waited for its loads).
     const int bt = tid - kConsumers, u = bt & 7;
     const int per = (kEdgesCTA + ranks - 1) / ranks, e0 = rank * per, e1 = min(kEdgesCTA, e0 + per);
     const int rounds = (per + kBuilders / 8 - 1) / (kBuilders / 8);
     auto edge_of = [&](int rd) { return e0 + rd * (kBuilders / 8) + (bt >> 3); };
+    // kQuestion's struct steps arrive by bulk copy (rank 0), not from the builders.
+    auto bulk_step = [&](int s) { return kMode == kQuestion && s / kc == 1; };
     auto fetch = [&](int g, int rd, uint4 (&v)[5]) {
       const int e = edge_of(rd);
-      if (g < gsteps && e < e1 && m0 + e < p.M) load_units<kMode>(p, m0 + e, g % steps, kc, q0 + g / steps, u, v);
+      if (g >= gsteps || e >= e1 || bulk_step(g % steps)) return;
+      const WgItem wi = item(g / steps);  // the next step may be the next item's
+      if (wi.m0 + e < wi.lim) load_units<kMode>(p, wi.row0 + e, g % steps, kc, wi.q, u, v);
     };
-    uint4 cur[2][5], nxt[2][5];
-    float nav2[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // nav of the first two rounds' edges (kScore)
-#pragma unroll
-    for (int rd = 0; rd < 2; ++rd) {
-      if (rd < rounds) fetch(0, rd, cur[rd]);
-      const int me = m0 + edge_of(rd);
-      if (kMode == kScore && rd < rounds && edge_of(rd) < e1 && me < p.M) {
-        nav2[rd][0] = p.nav[2 * (size_t)me];
-        nav2[rd][1] = p.nav[2 * (size_t)me + 1];
+    uint4 cur[5], nxt[5];
+    float nav0[2] = {0.f, 0.f};  // nav of the first round's edge (twin rows)
+    auto load_nav = [&](const WgItem& wi) {
+      const int e = edge_of(0);
+      if (e < e1 && wi.m0 + e < wi.lim) {
+        nav0[0] = p.nav[2 * (size_t)(wi.row0 + e)];
+        nav0[1] = p.nav[2 * (size_t)(wi.row0 + e) + 1];
       }
-    }
+    };
+    fetch(0, 0, cur);
+    if (kMode == kScore) load_nav(item(0));  // the same edges for every query
     for (int g = 0; g < gsteps; ++g) {
       const int it = g / steps, s = g % steps, slot = g % kASlots;
-#pragma unroll
-      for (int rd = 0; rd < 2; ++rd)
-        if (rd < rounds) fetch(g + 1, rd, nxt[rd]);
+      const WgItem wi = item(it);
+      if (kMode == kQuestion && s == 0) load_nav(wi);  // each item has its own edges
+      fetch(g + 1, 0, nxt);
+      WG_MARK(traced && bt == 0 && g < kTraceSteps, g * 8 + 5);
       mbar_wait(bar(kBarAEmpty + slot), ((g / kASlots) & 1) ^ 1);
+      WG_MARK(traced && bt == 0 && g < kTraceSteps, g * 8 + 6);
+      if (bulk_step(s)) {
+        // The tile's sc image of this chunk, to every CTA, once all released the slot.  (Every
+        // builder still waits for the slot: a parity wait must never run a phase ahead.)
+        if (rank == 0 && bt == 0) {
+          const long long tile = (long long)wi.q * ((p.M + kEdgesCTA - 1) / kEdgesCTA) + wi.m0 / kEdgesCTA;
+          bulk_copy_multicast(a_smem + slot * kASlotBytes, p.sc + (tile * kc + s % kc) * (kASlotBytes / 2),
+                              kASlotBytes, bar(kBarAFull + slot), static_cast<uint16_t>((1u << ranks) - 1));
+        }
+#pragma unroll
+        for (int x = 0; x < 5; ++x) cur[x] = nxt[x];  // the next step's units, if it is built
+        WG_MARK(traced && bt == 0 && g < kTraceSteps, g * 8 + 7);
+        continue;  // (a struct step is never a work item's last: no dist to send)
+      }
       for (int rd = 0; rd < rounds; ++rd) {
         const int e = edge_of(rd);
         const bool valid = e < e1;
-        const int me = m0 + e;
+        const size_t me = wi.row0 + e;
         float df = 0.f, db = 0.f;
         if (valid) {
           uint4 o0 = make_uint4(0u, 0u, 0u, 0u), o1 = o0;
-          if (me < p.M) {
+#ifdef WG_NO_BUILD
+          if (false) {
+#else
+          if (wi.m0 + e < wi.lim) {
+#endif
             uint4 v[5];
             float navf, navb;
-            if (rd < 2) {
+            if (rd == 0) {
 #pragma unroll
-              for (int x = 0; x < 5; ++x) v[x] = rd == 0 ? cur[0][x] : cur[1][x];
-              navf = rd == 0 ? nav2[0][0] : nav2[1][0];
-              navb = rd == 0 ? nav2[0][1] : nav2[1][1];
+              for (int x = 0; x < 5; ++x) v[x] = cur[x];
+              navf = nav0[0];
+              navb = nav0[1];
             } else {
-              load_units<kMode>(p, me, s, kc, q0 + it, u, v);
-              navf = kMode == kScore ? p.nav[2 * (size_t)me] : 0.f;
-              navb = kMode == kScore ? p.nav[2 * (size_t)me + 1] : 0.f;
+              load_units<kMode>(p, me, s, kc, wi.q, u, v);
+              navf = twin_rows(kMode) ? p.nav[2 * me] : 0.f;
+              navb = twin_rows(kMode) ? p.nav[2 * me + 1] : 0.f;
             }
             build_units<kMode>(v, s, kc, o0, o1, df, db, navf, navb);
           }
@@ -489,9 +657,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
         }
       }
 #pragma unroll
-      for (int rd = 0; rd < 2; ++rd)
-#pragma unroll
-        for (int x = 0; x < 5; ++x) cur[rd][x] = nxt[rd][x];
+      for (int x = 0; x < 5; ++x) cur[x] = nxt[x];
+      WG_MARK(traced && bt == 0 && g < kTraceSteps, g * 8 + 7);
       if (kMode != kEdge && s == steps - 1) {
         // The query's dist of this CTA's edges, to every CTA, with the
         // query's last A slot.
@@ -558,16 +725,19 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
     };
 
     for (int it = 0; it < iters; ++it) {
-      const int q = q0 + it;
+      const WgItem wi = item(it);
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
       for (int s = 0; s < steps; ++s) {
         const int g = it * steps + s, slot = g % kASlots;
         const int j = g * tps;
         const int st0 = j % kStages, st1 = (j + tps - 1) % kStages;
+        WG_MARK(traced && tid == 0 && g < kTraceSteps, g * 8 + 0);
         mbar_wait(bar(kBarWFull + st0), (j / kStages) & 1);
         if (tps == 2) mbar_wait(bar(kBarWFull + st1), ((j + 1) / kStages) & 1);
+        WG_MARK(traced && tid == 0 && g < kTraceSteps, g * 8 + 1);
         mbar_wait(bar(kBarAFull + slot), (g / kASlots) & 1);
+        WG_MARK(traced && tid == 0 && g < kTraceSteps, g * 8 + 2);
         if (tid == 0 && g + kASlots < gsteps) mbar_expect_tx(bar(kBarAFull + slot), slot_bytes(g + kASlots));
         if (kMode != kEdge && s == steps - 1) {  // the query's dist, read before the slot is released
 #pragma unroll
@@ -595,6 +765,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
         wgmma_wait_all();
         acc_fence(acc0);
         acc_fence(acc1);
+        WG_MARK(traced && tid == 0 && g < kTraceSteps, g * 8 + 3);
         __syncwarp();
         if (tw == 0) {
           mbar_arrive(bar(kBarWEmpty + st0));
@@ -609,6 +780,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
             }
           }
         }
+        WG_MARK(traced && tid == 0 && g < kTraceSteps, g * 8 + 4);
         __syncwarp();
       }
 
@@ -621,8 +793,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
             const float2 bb = *reinterpret_cast<const float2*>(wts + kSliceN + col - col0);
 #pragma unroll
             for (int i = 0; i < 2; ++i) {
-              const int m = m0 + ecta[i];
-              if (m < p.M) {
+              const int m = wi.m0 + ecta[i];
+              if (m < wi.lim) {
                 float* cp = p.c + (2 * (size_t)m) * H + col;
                 *reinterpret_cast<float2*>(cp) =
                     make_float2(acc0[4 * jn + 2 * i] + bb.x, acc0[4 * jn + 2 * i + 1] + bb.y);
@@ -635,15 +807,17 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
         continue;
       }
 #ifdef WG_NO_EPI
-      if (tw < 2 && rank == 0) p.scores[(long long)q * p.ld_scores + m0 + tw] = acc0[0] + acc1[5];
+      if (tw < 2 && rank == 0 && wi.m0 + tw < wi.lim)
+        p.scores[(long long)wi.q * p.ld_scores + wi.m0 + tw] = acc0[0] + acc1[5];
       continue;
 #endif
 
+      WG_MARK(traced && tid == 0 && it < kTraceItems, kTraceEpi + it * 4);
       float nv[2][2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const int m = m0 + ecta[i];
-        const bool ok = kMode == kPooled && m < p.M;
+        const int m = wi.m0 + ecta[i];
+        const bool ok = kMode == kPooled && m < wi.lim;
         nv[0][i] = ok ? p.nav[2 * (size_t)m] : 0.f;
         nv[1][i] = ok ? p.nav[2 * (size_t)m + 1] : 0.f;
       }
@@ -659,9 +833,9 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
         if (kMode == kPooled) {
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
-            const int m = m0 + ecta[i];
+            const int m = wi.m0 + ecta[i];
             const float* cp = p.c + (2 * (size_t)m) * H + col;
-            const bool live = ok && m < p.M;
+            const bool live = ok && m < wi.lim;
             cfb[i][0] = live ? *reinterpret_cast<const float2*>(cp) : make_float2(0.f, 0.f);
             cfb[i][1] = live ? *reinterpret_cast<const float2*>(cp + H) : make_float2(0.f, 0.f);
           }
@@ -671,7 +845,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
           const int i = c >> 1;
           const float w = (c & 1) ? wd.y : wd.x;
           float zf, zb;
-          if (kMode == kScore) {
+          if (twin_rows(kMode)) {
             const float b = (c & 1) ? bb.y : bb.x;
             zf = acc0[4 * jn + c] + dv[0][i] * w + b;
             zb = acc1[4 * jn + c] + dv[1][i] * w + b;
@@ -689,6 +863,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
         }
       }
       cluster_row_sum(part, 0, it);
+      WG_MARK(traced && tid == 0 && it < kTraceItems, kTraceEpi + it * 4 + 1);
       float mean[2][2], rstd[2][2];
 #pragma unroll
       for (int dir = 0; dir < 2; ++dir)
@@ -709,6 +884,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
         }
       }
       cluster_row_sum(part, 1, it);
+      WG_MARK(traced && tid == 0 && it < kTraceItems, kTraceEpi + it * 4 + 2);
 #pragma unroll
       for (int dir = 0; dir < 2; ++dir)
 #pragma unroll
@@ -716,8 +892,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
           rstd[dir][i] = rsqrtf(part[dir][i] / H + 1e-5f);
           part[dir][i] = 0.f;
         }
-#pragma unroll
-      for (int jn = 0; jn < kSliceN / 8; ++jn) {
+      // GELU and the folded head of column block jn (acc*[base .. base + 4)).
+      auto gelu_head = [&](int jn, int base) {
         const int col = col0 + 8 * jn + 2 * (lane & 3);
         if (col < H) {
           const float2 ls = *reinterpret_cast<const float2*>(wts + 2 * kSliceN + col - col0);
@@ -728,18 +904,38 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
             const int i = c >> 1;
             const bool odd = c & 1;
             const float s = odd ? ls.y : ls.x, o = odd ? lb.y : lb.x, w = odd ? w2.y : w2.x;
-            part[0][i] += gelu_erf((acc0[4 * jn + c] - mean[0][i]) * rstd[0][i] * s + o) * w;
-            part[1][i] += gelu_erf((acc1[4 * jn + c] - mean[1][i]) * rstd[1][i] * s + o) * w;
+            part[0][i] += epi_gelu((acc0[base + c] - mean[0][i]) * rstd[0][i] * s + o) * w;
+            part[1][i] += epi_gelu((acc1[base + c] - mean[1][i]) * rstd[1][i] * s + o) * w;
           }
         }
+      };
+      if (kMode == kQuestion) {
+        // A rolled loop: block jn is always acc*[0..3] (the blocks shift down
+        // one per turn; this pass is the accumulators' last use).  Fully
+        // unrolled, the 128 inlined GELUs were ~80 KB of straight-line code
+        // run once per item, and this pass took ~2.3x as long.  (The pooled
+        // modes keep the unrolled loop: rolled, kPooled spilled.)
+#pragma unroll 1
+        for (int jn = 0; jn < kSliceN / 8; ++jn) {
+          gelu_head(jn, 0);
+#pragma unroll
+          for (int i = 0; i < 60; ++i) {
+            acc0[i] = acc0[i + 4];
+            acc1[i] = acc1[i + 4];
+          }
+        }
+      } else {
+#pragma unroll
+        for (int jn = 0; jn < kSliceN / 8; ++jn) gelu_head(jn, 4 * jn);
       }
       cluster_row_sum(part, 2, it);
+      WG_MARK(traced && tid == 0 && it < kTraceItems, kTraceEpi + it * 4 + 3);
       if (rank == 0 && (lane & 3) == 0) {
         const float b2 = p.w.b2s[0];
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          const int m = m0 + ecta[i];
-          if (m < p.M) p.scores[(long long)q * p.ld_scores + m] = combine(part[0][i] + b2, part[1][i] + b2);
+          const int m = wi.m0 + ecta[i];
+          if (m < wi.lim) p.scores[(long long)wi.q * p.ld_scores + m] = combine(part[0][i] + b2, part[1][i] + b2);
         }
       }
     }
@@ -748,21 +944,25 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
   cluster_sync();
 }
 
-// Launches wg_kernel<kMode> over M edges (and B queries) with a cluster of
-// ceil(H / 128) CTAs; returns the CUDA error (a cluster that cannot be
-// scheduled is refused).
+// Launches wg_kernel<kMode> with a cluster of ceil(H / 128) CTAs; returns
+// the CUDA error (a cluster that cannot be scheduled is refused).  kScore,
+// kPooled, kEdge: one cluster per tile of M edges (and group of B queries).
+// kQuestion: `clusters` clusters walk the live tiles of G questions of M
+// candidates each; 0 asks for as many as the card holds at once
+// (persistent), and the count is raised so that no cluster walks more than
+// kMaxItems tiles.
 template <int kMode>
-cudaError_t launch_wg(const WgArgs& a, cudaStream_t stream) {
+cudaError_t launch_wg(const WgArgs& a, cudaStream_t stream, int clusters = 0) {
   const int ranks = (a.w.H + kSliceN - 1) / kSliceN;
   const int qgroups = kMode == kEdge ? 1 : (a.B + kQueriesPerCta - 1) / kQueriesPerCta;
   const int tiles = (a.M + kEdgesCTA - 1) / kEdgesCTA;
-  if (tiles > 65535 || qgroups > 65535) return cudaErrorInvalidValue;
+  if (kMode != kQuestion && (tiles > 65535 || qgroups > 65535)) return cudaErrorInvalidValue;
   void (*fn)(WgArgs) = wg_kernel<kMode>;
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(kWgSmemBytes));
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(ranks, qgroups, tiles);
+  cfg.gridDim = kMode == kQuestion ? dim3(ranks, 1, 1) : dim3(ranks, qgroups, tiles);
   cfg.blockDim = dim3(kWgThreads, 1, 1);
   cfg.dynamicSmemBytes = kWgSmemBytes;
   cfg.stream = stream;
@@ -773,22 +973,43 @@ cudaError_t launch_wg(const WgArgs& a, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
+  int fit = 0;
+  err = cudaOccupancyMaxActiveClusters(&fit, fn, &cfg);
   if (err != cudaSuccess) return err;
-  if (clusters < 1) return cudaErrorLaunchOutOfResources;  // the cluster cannot be scheduled
+  if (fit < 1) return cudaErrorLaunchOutOfResources;  // the cluster cannot be scheduled
+  if (kMode == kQuestion) {
+    const long long items = (long long)a.G * tiles;
+    long long n = clusters > 0 ? clusters : fit;
+    n = std::max(std::min(n, items), (items + kMaxItems - 1) / kMaxItems);
+    if (n * ranks > 0x7fffffffll) return cudaErrorInvalidValue;
+    cfg.gridDim = dim3(static_cast<unsigned>(n * ranks), 1, 1);
+  }
   return cudaLaunchKernelEx(&cfg, fn, a);
 }
 
-// One warp per edge: sc_{f,b} (bf16) and nav_{f,b} (f32) of M edges, the
-// query-independent struct terms, into sc [M, 2, D] and nav [M, 2].
+// One warp per edge: sc_{f,b} (bf16) and nav_{f,b} (f32) of n edges, the
+// query-independent struct terms, into sc and nav [n, 2].  Without lengths
+// (kScore, kEdge): sc [n, 2, D].  With lengths (kQuestion, n = G * M): edge
+// g*M + m is skipped unless m < lengths[g], and sc is the A-chunk images
+// that wg_kernel<kQuestion> bulk-copies: edge e of tile t = g*ceil(M/128) +
+// m/128 (e = m % 128) is row e % 64 of warpgroup e / 64's fwd (acc0) and bwd
+// (acc1) chunks, chunk c of the tile at sc + (t * D/64 + c) * 16384.
 __global__ void __launch_bounds__(kThreads) struct_rows_kernel(TwinWeights w, const __nv_bfloat16* st,
-                                                               __nv_bfloat16* sc, float* nav, int M) {
+                                                               __nv_bfloat16* sc, float* nav, long long n,
+                                                               const int* lengths, int M) {
   const int lane = threadIdx.x & 31;
-  const int m = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (m >= M) return;
+  const long long m = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (m >= n || (lengths && m % M >= __ldg(lengths + m / M))) return;
   float nv[2];
-  build_struct_rows(w, st + (size_t)m * w.S, sc + 2 * (size_t)m * w.D, sc + (2 * (size_t)m + 1) * w.D, nv, lane);
+  if (lengths) {
+    const int e = static_cast<int>(m % M) % kEdgesCTA, row = e % kEdgesWG;
+    const long long tile = m / M * ((M + kEdgesCTA - 1) / kEdgesCTA) + m % M / kEdgesCTA;
+    __nv_bfloat16* rowf =
+        sc + tile * (kASlotBytes / 2) * (w.D / kChunkK) + (e / kEdgesWG) * kAChunkBytes + row * kChunkK;
+    build_struct_rows(w, st + (size_t)m * w.S, rowf, rowf + kAChunkBytes / 2, nv, lane, kASlotBytes / 2, row & 7);
+  } else {
+    build_struct_rows(w, st + (size_t)m * w.S, sc + 2 * (size_t)m * w.D, sc + (2 * (size_t)m + 1) * w.D, nv, lane);
+  }
   if (lane == 0) {
     nav[2 * (size_t)m] = nv[0];
     nav[2 * (size_t)m + 1] = nv[1];
@@ -796,8 +1017,10 @@ __global__ void __launch_bounds__(kThreads) struct_rows_kernel(TwinWeights w, co
 }
 
 inline cudaError_t launch_struct_rows(const TwinWeights& w, const __nv_bfloat16* st, __nv_bfloat16* sc,
-                                      float* nav, int M, cudaStream_t stream) {
-  struct_rows_kernel<<<(M + kWarps - 1) / kWarps, kThreads, 0, stream>>>(w, st, sc, nav, M);
+                                      float* nav, long long n, const int* lengths, int M, cudaStream_t stream) {
+  const long long blocks = (n + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffll) return cudaErrorInvalidValue;
+  struct_rows_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(w, st, sc, nav, n, lengths, M);
   return cudaGetLastError();
 }
 

@@ -16,10 +16,10 @@ wrapper                     TPU kernel (wrappers)           CUDA source (``csrc/
                             (``pallas_query_topk_fused``)
 ==========================  ==============================  =========================
 
-The device code they share is ``csrc/twin_score.cuh`` (all three) and
-``csrc/twin_wgmma.cuh`` (the two pooled kernels: wgmma, bulk-copied W1 tiles,
-H split across a thread-block cluster); see the notes in the sources for each
-design and bound.
+The device code they share is ``csrc/twin_score.cuh`` (the struct rows,
+the combine, the select) and ``csrc/twin_wgmma.cuh`` (the wgmma mainloop:
+bulk-copied W1 tiles, H split across a thread-block cluster); see the notes
+in the sources for each design and bound.
 
 * A wrapper launches its kernel for CUDA tensors and counts the launch in
   ``<wrapper>.launches`` (``query_topk_per_query`` counts through
@@ -51,7 +51,9 @@ KERNEL_SOURCES = (KERNEL_SOURCE, SCORE_SOURCE, POOLED_SOURCE)
 MAX_K = 1024              # the select launch's limit (kMaxK in twin_score.cuh)
 SLICE_N = 128             # H columns per CTA of the pooled kernels (kSliceN in twin_wgmma.cuh)
 TILE_K = 64               # k per W1 tile (kChunkK)
-SCRATCH_BYTES = 1 << 30   # pooled kernels: per-call scratch limit; M is chunked to keep within it
+EDGE_TILE = 128           # edges per tile of the wgmma kernels (kEdgesCTA)
+SCRATCH_BYTES = 1 << 30   # per-call scratch limit; M (pooled) or G (per question) is chunked to keep within it
+PQT_CLUSTERS = 0          # per_question_topk's clusters: 0 = as many as the card holds at once (persistent)
 _CHUNK_ELEMS = 1 << 27    # plain pooled versions: [B, chunk, D] temporaries of at most this many
 
 
@@ -63,10 +65,9 @@ def prep_weights(feats: dict[str, Any]) -> dict[str, torch.Tensor]:
     struct-projection halves, and the exact serving fold
     ``w2s = W2 @ w_score``, ``b2s = b2 @ w_score + b_score`` (no
     nonlinearity separates ``state_net_1`` from ``score_head``).  The struct
-    projection stays f32, as on the XLA path.  ``w1t`` (``kernel_w1_layout``,
-    the per-question kernel's), ``w1_tiles`` (``w1_tiles``, the pooled
-    kernels'; both present when D % 64 == 0) and ``ws`` (``[S, D]``) are the
-    kernels' layouts.
+    projection stays f32, as on the XLA path.  ``w1_tiles`` (``w1_tiles``,
+    present when D % 64 == 0) and ``ws`` (``[S, D]``) are the kernels'
+    layouts.
     """
     d = feats["q_gate"]["kernel"].shape[0]
     w1 = feats["state_net_0"]["kernel"]
@@ -98,24 +99,12 @@ def prep_weights(feats: dict[str, Any]) -> dict[str, torch.Tensor]:
     }
     out["ws"] = ws.contiguous()
     if d % 64 == 0:  # the kernels' D; other widths only take the plain versions
-        w1cat = torch.cat([out["w1_inter"], out["w1_struct"], out["w1_err"]])
-        out["w1t"] = kernel_w1_layout(w1cat)
-        out["w1_tiles"] = w1_tiles(w1cat)
+        out["w1_tiles"] = w1_tiles(torch.cat([out["w1_inter"], out["w1_struct"], out["w1_err"]]))
     return out
 
 
-def kernel_w1_layout(w1: torch.Tensor) -> torch.Tensor:
-    """``W1[:3D]`` ([3D, H]) in the kernels' layout: transposed to [H, 3D],
-    and within each block of 16 k the order of k = 8a + 2t + b changed to
-    (t, a, b), so the four values an ``mma.sync`` lane t needs for one k16
-    step (k = 2t, 2t+1, 8+2t, 9+2t) are one 8-byte load."""
-    w1t = w1.t()
-    h, kk = w1t.shape
-    return w1t.reshape(h, kk // 16, 2, 4, 2).permute(0, 1, 3, 2, 4).reshape(h, kk).contiguous()
-
-
 def w1_tiles(w1: torch.Tensor, slice_n: int = SLICE_N) -> torch.Tensor:
-    """``W1[:3D]`` ([3D, H]) as the pooled kernels' tile image
+    """``W1[:3D]`` ([3D, H]) as the kernels' tile image
     ``[ceil(H / slice_n), 3D / 64, slice_n, 64]``: tile (c, kc) holds
     ``W1[64 kc : 64 kc + 64, slice_n c : slice_n c + slice_n]`` transposed
     (row n = column ``slice_n c + n`` of W1, 64 k contiguous: 128 bytes in
@@ -132,6 +121,31 @@ def w1_tiles(w1: torch.Tensor, slice_n: int = SLICE_N) -> torch.Tensor:
     n = torch.arange(slice_n, device=w1.device)[:, None]
     unit = torch.arange(8, device=w1.device)[None, :] ^ (n % 8)  # stored unit p holds unit p ^ (n % 8)
     return tiles[:, :, n, unit, :].reshape(ch, kk // TILE_K, slice_n, TILE_K).contiguous()
+
+
+def sc_image(sc_f: torch.Tensor, sc_b: torch.Tensor) -> torch.Tensor:
+    """The per-question kernel's struct scratch, laid out as its pre-pass
+    writes it on the card (``struct_rows_kernel`` with lengths, in
+    ``csrc/twin_wgmma.cuh``): plain version of the layout.
+
+    ``sc_f``, ``sc_b`` are [G, M, D] (the struct contexts of both
+    directions).  The result is [G * ceil(M / 128), D / 64, 2, 2, 64, 64]:
+    per tile of 128 edges and chunk of 64 columns, the 32 KB A-chunk image a
+    slot holds on a struct step, [warpgroup e // 64][direction][row e % 64]
+    [64 k], with the 16-byte unit j of row r stored at unit j ^ (r % 8) (the
+    128-byte swizzle), so that one bulk copy fills the slot.  Rows of edges
+    past M are zero here (the kernel leaves them unwritten: no score reads
+    them)."""
+    g, m, d = sc_f.shape
+    t = -(-m // EDGE_TILE)
+    rows = torch.zeros(g, t * EDGE_TILE, 2, d, dtype=sc_f.dtype, device=sc_f.device)
+    rows[:, :m, 0], rows[:, :m, 1] = sc_f, sc_b
+    # [g, t, wg, row, dir, chunk, unit, 8] -> [g, t, chunk, wg, dir, row, unit, 8]
+    img = rows.reshape(g, t, 2, EDGE_TILE // 2, 2, d // TILE_K, 8, 8).permute(0, 1, 5, 2, 4, 3, 6, 7)
+    r = torch.arange(EDGE_TILE // 2, device=sc_f.device)[:, None]
+    unit = torch.arange(8, device=sc_f.device)[None, :] ^ (r % 8)  # stored unit p holds unit p ^ (r % 8)
+    img = img[:, :, :, :, :, r, unit, :]
+    return img.reshape(g * t, d // TILE_K, 2, 2, EDGE_TILE // 2, TILE_K).contiguous()
 
 
 def query_gate_bias(feats: dict[str, Any], q_emb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -327,7 +341,7 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 # Argument types of each library's C entries (pointers and the stream as
 # c_void_p, sizes as c_int), after its name prefix.
 _ENTRIES = {
-    KERNEL_SOURCE: ("pqt", {"forward": [ctypes.c_void_p] * 23 + [ctypes.c_int] * 6 + [ctypes.c_void_p]}),
+    KERNEL_SOURCE: ("pqt", {"forward": [ctypes.c_void_p] * 25 + [ctypes.c_int] * 7 + [ctypes.c_void_p]}),
     SCORE_SOURCE: ("sb", {
         "forward": [ctypes.c_void_p] * 22 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p],
         "select": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
@@ -403,7 +417,7 @@ def _check_k(k: int, m: int) -> None:
 
 
 _F32_WEIGHTS = ("w1_dist", "b1", "ln1_scale", "ln1_bias", "w2s", "b2s", "ws", "bs", "lns_scale",
-                "lns_bias", "wg_kernel", "wg_bias")  # the C entries' order, after w1t
+                "lns_bias", "wg_kernel", "wg_bias")  # the C entries' order, after w1_tiles
 
 
 def _kernel_weights(
@@ -417,12 +431,11 @@ def _kernel_weights(
     if s % 2 or s > 32:
         raise ValueError(f"kernel needs an even struct width <= 32, got S={s}")
     w = weights if weights is not None else prep_weights(bundle["features"])
-    h_dim = w["w1t"].shape[0]
+    h_dim = w["w1_dist"].shape[-1]
     if h_dim % 8 or h_dim > 1024:
         raise ValueError(f"kernel needs H % 8 == 0 and H <= 1024, got H={h_dim}")
     shapes = [(1, h_dim), (h_dim,), (h_dim,), (h_dim,), (h_dim, 1), (1,), (s, d), (d,), (d,), (d,),
               (d, 1), (1,)]
-    _check("w1t", w["w1t"], torch.bfloat16, (h_dim, 3 * d), dev)
     _check("w1_tiles", w["w1_tiles"], torch.bfloat16, (-(-h_dim // SLICE_N), 3 * d // TILE_K, SLICE_N, TILE_K),
            dev, align=16)
     for name, shape in zip(_F32_WEIGHTS, shapes):
@@ -430,14 +443,14 @@ def _kernel_weights(
     return w
 
 
-def _weight_args(w: dict[str, torch.Tensor], layout: str = "w1t") -> list[Any]:
-    """Pointers to W1 in ``layout`` and the f32 weights, in the C entries' order."""
-    return [_ptr(w[layout])] + [_ptr(w[name]) for name in _F32_WEIGHTS]
+def _weight_args(w: dict[str, torch.Tensor]) -> list[Any]:
+    """Pointers to the W1 tiles and the f32 weights, in the C entries' order."""
+    return [_ptr(w["w1_tiles"])] + [_ptr(w[name]) for name in _F32_WEIGHTS]
 
 
 def scratch_bytes_per_edge(d: int, h: int, fused: bool) -> int:
-    """Device scratch of the pooled kernels per candidate: sc [2, D] bf16 and
-    nav [2] f32 (both), plus c [2, H] f32 (the factorised kernel)."""
+    """Device scratch of the kernels per candidate: sc [2, D] bf16 and nav
+    [2] f32 (all three), plus c [2, H] f32 (the factorised kernel)."""
     return 2 * d * 2 + 2 * 4 + (2 * h * 4 if fused else 0)
 
 
@@ -446,6 +459,14 @@ def _edge_chunks(m: int, per_edge: int) -> list[tuple[int, int]]:
     ``SCRATCH_BYTES`` (multiples of 128 edges, at least one tile)."""
     step = max(128, SCRATCH_BYTES // per_edge // 128 * 128)
     return [(c0, min(c0 + step, m)) for c0 in range(0, m, step)]
+
+
+def _question_chunks(g: int, m: int, per_edge: int) -> list[tuple[int, int]]:
+    """(start, stop) question ranges of ``per_question_topk`` whose scratch
+    (M candidates per question) stays within ``SCRATCH_BYTES`` (at least one
+    question per chunk)."""
+    step = max(1, SCRATCH_BYTES // (m * per_edge))
+    return [(g0, min(g0 + step, g)) for g0 in range(0, g, step)]
 
 
 def _select(scores: torch.Tensor, k: int, name: str) -> tuple[torch.Tensor, torch.Tensor]:
@@ -466,7 +487,7 @@ def _pooled_scores(source: str, entry: str, name: str, bundle, q_emb, rows, weig
     dev = h.device
     b, m, d, s = _check_pooled(q_emb, h, r, t, st, dev)
     w = _kernel_weights(bundle, weights, d, s, dev)
-    h_dim = w["w1t"].shape[0]
+    h_dim = w["w1_dist"].shape[-1]
     gate, bias = query_gate_bias(bundle["features"], q_emb)
     scores = torch.empty((b, m), dtype=torch.float32, device=dev)
     chunks = _edge_chunks(m, scratch_bytes_per_edge(d, h_dim, fused))
@@ -479,7 +500,7 @@ def _pooled_scores(source: str, entry: str, name: str, bundle, q_emb, rows, weig
         _launch(
             source, entry, name,
             _ptr(h, c0 * d), _ptr(r, c0 * d), _ptr(t, c0 * d), _ptr(st, c0 * s), _ptr(gate), _ptr(bias),
-            *_weight_args(w, "w1_tiles"), *(_ptr(x) for x in scratch), _ptr(scores, c0), m,
+            *_weight_args(w), *(_ptr(x) for x in scratch), _ptr(scores, c0), m,
             b, c1 - c0, d, h_dim, s, _stream(dev),
         )
     return scores
@@ -518,6 +539,11 @@ def per_question_topk(
     CUDA tensors launch ``csrc/per_question_topk.cu``; CPU tensors take the
     plain version (``per_question_topk_reference``).  ``weights`` is
     ``prep_weights(bundle["features"])``, computed here when not given.
+    Device scratch per call: sc and nav of every candidate (M rounded up to
+    whole tiles of 128), ``scratch_bytes_per_edge(D, H, False)`` bytes each
+    (4 KB + 8 B at D = 1024: 128 MiB at G = 16, M = 2048), G cut into
+    question chunks so that it stays within ``SCRATCH_BYTES`` (1 GiB),
+    besides the [G, M] f32 scores.
     """
     dev = _device_of("per_question_topk", head_repr)
     if dev.type == "cpu":
@@ -533,18 +559,26 @@ def per_question_topk(
     _check("lengths", lengths, torch.int32, (g_n,), dev, align=4)
     _check("q_emb", q_emb, torch.float32, (g_n, d), dev)
     w = _kernel_weights(bundle, weights, d, s, dev)
-    h_dim = w["w1t"].shape[0]
+    h_dim = w["w1_dist"].shape[-1]
     _check_k(k, m)
+    if not 1 <= g_n <= 65535:
+        raise ValueError(f"kernel needs 1 <= G <= 65535 questions, got {g_n}")
     gate, bias = query_gate_bias(bundle["features"], q_emb)
     scores = torch.empty((g_n, m), dtype=torch.float32, device=dev)
     vals = torch.empty((g_n, k), dtype=torch.float32, device=dev)
     ids = torch.empty((g_n, k), dtype=torch.int32, device=dev)
-    _launch(
-        KERNEL_SOURCE, "pqt_forward", "per_question_topk",
-        _ptr(lengths), _ptr(head_repr), _ptr(rel_repr), _ptr(tail_repr), _ptr(struct_raw),
-        _ptr(gate), _ptr(bias), *_weight_args(w), _ptr(scores), _ptr(vals), _ptr(ids),
-        g_n, m, d, h_dim, s, k, _stream(dev),
-    )
+    m_tiles = -(-m // EDGE_TILE) * EDGE_TILE  # sc is kept as whole tiles of edges (A-chunk images)
+    chunks = _question_chunks(g_n, m_tiles, scratch_bytes_per_edge(d, h_dim, False))
+    sc = torch.empty(((chunks[0][1] - chunks[0][0]) * m_tiles, 2, d), dtype=bf16, device=dev)
+    nav = torch.empty(((chunks[0][1] - chunks[0][0]) * m, 2), dtype=torch.float32, device=dev)
+    for g0, g1 in chunks:
+        _launch(
+            KERNEL_SOURCE, "pqt_forward", "per_question_topk",
+            _ptr(lengths, g0), _ptr(head_repr, g0 * m * d), _ptr(rel_repr, g0 * m * d),
+            _ptr(tail_repr, g0 * m * d), _ptr(struct_raw, g0 * m * s), _ptr(gate, g0 * d), _ptr(bias, g0 * d),
+            *_weight_args(w), _ptr(sc), _ptr(nav), _ptr(scores, g0 * m), _ptr(vals, g0 * k), _ptr(ids, g0 * k),
+            g1 - g0, m, d, h_dim, s, k, PQT_CLUSTERS, _stream(dev),
+        )
     per_question_topk.launches += 1
     return vals, ids
 

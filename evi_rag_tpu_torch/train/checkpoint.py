@@ -25,6 +25,8 @@ from typing import Any, Iterator
 import numpy as np
 import torch
 
+from evi_rag_tpu_torch.utils.device import resolve_device
+
 META_FILENAME = "meta.json"
 STATE_FILENAME = "state.npz"
 SCHEMA_VERSION = 1
@@ -146,11 +148,13 @@ def export_retriever_features(params: Any, parity_meta: dict[str, int]) -> dict[
 
 
 def bundle_from_numpy(
-    features: dict[str, Any], *, device: str | torch.device = "cpu"
+    features: dict[str, Any], *, device: str | torch.device | None = None
 ) -> dict[str, Any]:
     """Convert a nested dict of numpy arrays (the JAX package's parameters,
     e.g. ``export_retriever_features(...)["features"]``) into the same tree
-    of float32 torch tensors on ``device``."""
+    of float32 torch tensors on ``device`` (``resolve_device``: the card
+    unless ``"cpu"`` is named; raises without one)."""
+    device = resolve_device(device)
 
     def conv(x: Any) -> Any:
         if isinstance(x, dict):

@@ -55,17 +55,11 @@ def _inputs(dev, g, m, d, s, lens, seed):
             torch.tensor(lens, dtype=torch.int32, device=dev))
 
 
-@pytest.mark.parametrize("d,h,m,k", [(64, 64, 128, 20), (128, 256, 300, 16), (1024, 1024, 512, 100)])
-def test_kernel_matches_plain_version(cuda, d, h, m, k):
-    bundle = _bundle(d, h, 20, seed=d + h)
-    lens = [m, m - 7, 5, 0]
-    args = (bundle, *_inputs(cuda, len(lens), m, d, 20, lens, seed=m))
-    before = sk.per_question_topk.launches
-    vals, ids = sk.per_question_topk(*args, k=k)
-    torch.cuda.synchronize()
-    assert sk.per_question_topk.launches == before + 1
-    assert vals.dtype == torch.float32 and ids.dtype == torch.int32
-    scores = sk.per_question_scores_reference(*args).cpu().numpy()
+def _hold_per_question(vals, ids, scores, lens, k):
+    """A per-question top-k against the plain version's [G, M] scores:
+    min(len, k) finite values within 1e-3 of the plain score of the same id,
+    -inf slots carrying the ids past the prefix, and every id in one top-k
+    but not the other within 1e-3 of the plain k-th score."""
     v, i = vals.cpu().numpy(), ids.cpu().numpy()
     for g, n_valid in enumerate(lens):
         n = min(n_valid, k)
@@ -79,6 +73,56 @@ def test_kernel_matches_plain_version(cuda, d, h, m, k):
         kth = scores[g, want[-1]]
         for e in set(got.tolist()) ^ set(want.tolist()):
             assert abs(scores[g, e] - kth) < 1e-3, (g, e)
+
+
+@pytest.mark.parametrize("length", [0, 1, 37, 127, 128, 129, "M-1", "M"])
+@pytest.mark.parametrize("d,h,m,k", [(64, 64, 300, 20), (128, 256, 300, 16), (128, 200, 300, 16),
+                                     (1024, 1024, 512, 100)])
+def test_kernel_matches_plain_version(cuda, d, h, m, k, length):
+    """Ragged prefixes (empty, inside the first tile, on and around a tile
+    edge, M - 1, M) at D = H = 64 (a cluster of one CTA), H = 256, H = 200
+    (W1 columns past H zero and masked) and the production width."""
+    bundle = _bundle(d, h, 20, seed=d + h)
+    n_valid = {"M-1": m - 1, "M": m}.get(length, length)
+    lens = [n_valid, m - 7, 5, 0]
+    args = (bundle, *_inputs(cuda, len(lens), m, d, 20, lens, seed=m + d))
+    before = sk.per_question_topk.launches
+    vals, ids = sk.per_question_topk(*args, k=k)
+    torch.cuda.synchronize()
+    assert sk.per_question_topk.launches == before + 1
+    assert vals.dtype == torch.float32 and ids.dtype == torch.int32
+    _hold_per_question(vals, ids, sk.per_question_scores_reference(*args).cpu().numpy(), lens, k)
+
+
+def test_kernel_repeats_bit_for_bit(cuda):
+    """Two launches on the same input give the same bits (fixed f32 sum
+    orders, no float atomics)."""
+    bundle = _bundle(1024, 1024, 20, seed=3)
+    args = (bundle, *_inputs(cuda, 6, 1024, 1024, 20, [1024, 700, 129, 37, 1, 0], seed=4))
+    runs = [sk.per_question_topk(*args, k=100) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+def test_kernel_schedules_and_question_chunks_agree_bit_for_bit(cuda, monkeypatch):
+    """Persistent clusters, one cluster per tile and question chunks (a
+    scratch limit of 3 questions) walk the same tiles: bitwise the same
+    output."""
+    d, h, m = 128, 256, 300
+    bundle = _bundle(d, h, 20, seed=5)
+    lens = [300, 0, 129, 128, 1, 37, 299, 200]
+    args = (bundle, *_inputs(cuda, len(lens), m, d, 20, lens, seed=6))
+    want = sk.per_question_topk(*args, k=16)
+    monkeypatch.setattr(sk, "PQT_CLUSTERS", len(lens) * 3)  # one cluster per (question, tile)
+    got = sk.per_question_topk(*args, k=16)
+    monkeypatch.setattr(sk, "PQT_CLUSTERS", 1)  # one cluster walks every live tile
+    got1 = sk.per_question_topk(*args, k=16)
+    monkeypatch.setattr(sk, "PQT_CLUSTERS", 0)
+    monkeypatch.setattr(sk, "SCRATCH_BYTES", 3 * m * sk.scratch_bytes_per_edge(d, h, False))
+    assert len(sk._question_chunks(len(lens), m, sk.scratch_bytes_per_edge(d, h, False))) == 3
+    got3 = sk.per_question_topk(*args, k=16)
+    for other in (got, got1, got3):
+        assert torch.equal(want[0], other[0]) and torch.equal(want[1], other[1])
+    _hold_per_question(*want, sk.per_question_scores_reference(*args).cpu().numpy(), lens, 16)
 
 
 def test_kernel_breaks_ties_by_lower_index(cuda):
@@ -103,7 +147,7 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         sk.per_question_topk(bundle, q, h, r, t, s, lengths, k=129)
 
 
-def test_per_question_kernel_output_unchanged_by_the_shared_header(cuda):
+def test_per_question_kernel_output_matches_its_pinned_digest(cuda):
     assert pqt_digest(cuda) == PQT_DIGEST
 
 

@@ -84,7 +84,8 @@ def test_bundle_from_numpy_gives_same_serve_output(jax_ckpt):
     jb = jck.export_retriever_features(params["params"], model.parity_meta())
     host = jax.tree.map(np.asarray, params)
     exported = tck.export_retriever_features(host, model.parity_meta())
-    tb = {"features": tck.bundle_from_numpy(exported["features"]), "parity_meta": exported["parity_meta"]}
+    tb = {"features": tck.bundle_from_numpy(exported["features"], device="cpu"),
+          "parity_meta": exported["parity_meta"]}
     assert sorted(tb["features"]) == sorted(tck.RETRIEVER_FEATURE_KEYS)
     ds = make_synthetic_dataset(num_samples=6, emb_dim=EMB, max_nodes=20, seed=2)
     kw = dict(entity_emb=ds.entity_emb, relation_emb=ds.relation_emb,
@@ -94,6 +95,19 @@ def test_bundle_from_numpy_gives_same_serve_output(jax_ckpt):
     for rj, rt in zip(jres, tres):
         np.testing.assert_array_equal(rt.edge_ids, rj.edge_ids)
         np.testing.assert_allclose(rt.scores, rj.scores, rtol=1e-4, atol=1e-5)
+
+
+def test_bundle_from_numpy_needs_the_card_unless_cpu_is_named(monkeypatch):
+    """Like every entry point of the port, the converter runs on the card by
+    default: with no GPU it raises unless the caller names the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    feats = {"q_gate": {"kernel": np.ones((2, 2), np.float32), "bias": np.zeros(2, np.float32)}}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tck.bundle_from_numpy(feats)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tck.bundle_from_numpy(feats, device="cuda")
+    got = tck.bundle_from_numpy(feats, device="cpu")
+    assert got["q_gate"]["kernel"].device.type == "cpu" and got["q_gate"]["kernel"].dtype == torch.float32
 
 
 def test_serve_task_matches_jax_task(jax_ckpt):

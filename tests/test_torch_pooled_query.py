@@ -58,7 +58,7 @@ def case():
         struct_raw=ins["struct"],
     )
     jb = jax.tree.map(jnp.asarray, np_bundle)
-    tb = {"features": bundle_from_numpy(np_bundle["features"])}
+    tb = {"features": bundle_from_numpy(np_bundle["features"], device="cpu")}
     j_index = jq.build_triple_index(jb, **{n: jnp.asarray(x) for n, x in tables.items()})
     t_index = tq.build_triple_index(tb, **tables, device="cpu")
     return dict(jb=jb, tb=tb, q=ins["q"], tables=tables, j_index=j_index, t_index=t_index)

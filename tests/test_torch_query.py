@@ -31,7 +31,7 @@ def case():
     arrays = dict(q=ins["q"], h=shape(ins["head"]), r=shape(ins["rel"]),
                   t=shape(ins["tail"]), s=shape(ins["struct"]), mask=mask)
     jb = jax.tree.map(jnp.asarray, np_bundle)
-    tb = {"features": bundle_from_numpy(np_bundle["features"])}
+    tb = {"features": bundle_from_numpy(np_bundle["features"], device="cpu")}
     return jb, tb, arrays
 
 

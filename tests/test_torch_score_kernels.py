@@ -39,7 +39,7 @@ def case():
                   t=shape(ins["tail"]), s=shape(ins["struct"]), lengths=lengths,
                   mask=np.arange(M)[None, :] < lengths[:, None])
     jb = jax.tree.map(jnp.asarray, np_bundle)
-    tb = {"features": bundle_from_numpy(np_bundle["features"])}
+    tb = {"features": bundle_from_numpy(np_bundle["features"], device="cpu")}
     return jb, tb, arrays
 
 
@@ -78,16 +78,10 @@ def test_prep_weights_fold_is_exact(case):
         np.testing.assert_array_equal(w[key].float().numpy(), np.asarray(jw[key].astype(jnp.float32)))
     for key in ("w1_dist", "b1", "w2s", "b2s", "bs", "wg_kernel"):
         np.testing.assert_allclose(w[key].numpy(), np.asarray(jw[key]), rtol=1e-6, atol=1e-6)
-    # Kernel layout: W1[:3D] transposed, each 16-k block reordered (a, t, b) -> (t, a, b).
-    w1t = w["w1t"]
-    assert w1t.shape == (H, 3 * D) and w1t.is_contiguous()
-    plain = w1t.reshape(H, 3 * D // 16, 4, 2, 2).permute(0, 1, 3, 2, 4).reshape(H, 3 * D)
-    for blk, key in enumerate(("w1_inter", "w1_struct", "w1_err")):
-        np.testing.assert_array_equal(plain[:, blk * D:(blk + 1) * D].t().float().numpy(),
-                                      w[key].float().numpy())
-    k = 8 * 1 + 2 * 3 + 1  # a=1, t=3, b=1 -> position 4t + 2a + b within its block
-    np.testing.assert_array_equal(w1t[:, 16 + 4 * 3 + 2 * 1 + 1].float().numpy(),
-                                  w["w1_inter"][16 + k].float().numpy())
+    # Kernel layout: W1[:3D] only as the wgmma tile image (no mma.sync layout).
+    assert "w1t" not in w
+    assert torch.equal(w["w1_tiles"], sk.w1_tiles(torch.cat([w["w1_inter"], w["w1_struct"], w["w1_err"]])))
+    assert w["w1_tiles"].shape == (-(-H // sk.SLICE_N), 3 * D // sk.TILE_K, sk.SLICE_N, sk.TILE_K)
 
 
 def test_plain_version_matches_xla_path(case):

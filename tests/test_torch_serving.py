@@ -33,7 +33,8 @@ def _bundles(seed):
         b = np_bundle["features"][name]["bias"]
         b[:] = 0.1 * rng.normal(size=b.shape)
     np_bundle["features"]["non_text_entity_emb"][:] = rng.normal(size=EMB)
-    return jax.tree.map(jnp.asarray, np_bundle), {"features": bundle_from_numpy(np_bundle["features"])}
+    tb = {"features": bundle_from_numpy(np_bundle["features"], device="cpu")}
+    return jax.tree.map(jnp.asarray, np_bundle), tb
 
 
 def _serve_both(ds, jdtype, tdtype, k=10, group_size=4, seed=3, **kw):

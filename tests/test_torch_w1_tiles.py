@@ -3,8 +3,11 @@
 ``w1_tiles`` lays ``W1[:3D]`` out as the shared-memory image of K-major,
 128-byte-swizzle wgmma B tiles; the kernels copy each tile as bytes, so the
 layout is all there is to check here, element for element, against a numpy
-version of the address formula.  The candidate chunking that bounds the
-kernels' scratch is plain Python and is checked here too.  The kernels
+version of the address formula.  ``sc_image`` is the per-question kernel's
+struct scratch as its pre-pass writes it on the card (the A-chunk images
+that one bulk copy moves into a slot), checked the same way.  The candidate
+chunking (pooled kernels) and the question chunking (per-question kernel)
+that bound the kernels' scratch are plain Python and are checked here too.  The kernels
 themselves run only on a card: ``tests/test_torch_card.py``.
 """
 
@@ -108,3 +111,56 @@ def test_edge_chunks_follow_the_limit(monkeypatch):
     assert sk._edge_chunks(1000, per_edge) == [(0, 256), (256, 512), (512, 768), (768, 1000)]
     monkeypatch.setattr(sk, "SCRATCH_BYTES", 1)  # below one tile: one tile per chunk
     assert sk._edge_chunks(300, per_edge) == [(0, 128), (128, 256), (256, 300)]
+
+
+@pytest.mark.parametrize("g,m", [(1, 256), (16, 2048), (16, 4096), (256, 4096), (65535, 256), (3, 1 << 20)])
+def test_question_chunks_cover_g_within_the_scratch_limit(g, m):
+    """Question chunks tile [0, G) in order; each holds whole questions and
+    stays within SCRATCH_BYTES unless one question alone needs more.  The
+    realistic serve group (G = 16, M = 2048, 128 MiB) is one chunk."""
+    per_edge = sk.scratch_bytes_per_edge(1024, 1024, False)
+    chunks = sk._question_chunks(g, m, per_edge)
+    assert chunks[0][0] == 0 and chunks[-1][1] == g
+    assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(chunks, chunks[1:]))
+    for g0, g1 in chunks:
+        assert (g1 - g0) * m * per_edge <= sk.SCRATCH_BYTES or g1 - g0 == 1
+    if m * per_edge * g <= sk.SCRATCH_BYTES:
+        assert chunks == [(0, g)]
+    if (g, m) == (256, 4096):
+        assert [g1 - g0 for g0, g1 in chunks] == [63, 63, 63, 63, 4]
+
+
+def test_question_chunks_follow_the_limit(monkeypatch):
+    per_edge = sk.scratch_bytes_per_edge(128, 256, False)
+    monkeypatch.setattr(sk, "SCRATCH_BYTES", 3 * 300 * per_edge)
+    assert sk._question_chunks(8, 300, per_edge) == [(0, 3), (3, 6), (6, 8)]
+    monkeypatch.setattr(sk, "SCRATCH_BYTES", 1)  # below one question: one question per chunk
+    assert sk._question_chunks(3, 300, per_edge) == [(0, 1), (1, 2), (2, 3)]
+
+
+def _sc_image_offsets(g, m, d):
+    """Flat offset in the sc image of (question q, edge e, direction dr,
+    column c): tile q * ceil(m / 128) + e // 128, chunk c // 64, warpgroup
+    (e % 128) // 64, direction dr, row r = e % 64, 16-byte unit
+    ((c % 64) // 8) ^ (r % 8), element c % 8."""
+    q, e, dr, c = np.meshgrid(np.arange(g), np.arange(m), np.arange(2), np.arange(d), indexing="ij")
+    t = -(-m // 128)
+    r = e % 64
+    tile = q * t + e // 128
+    chunk = c // 64
+    unit = ((c % 64) // 8) ^ (r % 8)
+    return ((((tile * (d // 64) + chunk) * 2 + (e % 128) // 64) * 2 + dr) * 64 + r) * 64 + unit * 8 + c % 8
+
+
+@pytest.mark.parametrize("g,m,d", [(1, 128, 64), (2, 300, 128), (3, 37, 256), (2, 256, 1024)])
+def test_sc_image_follows_its_formula(g, m, d):
+    rng = np.random.default_rng(g + m + d)
+    sc = [torch.as_tensor(rng.normal(size=(g, m, d)).astype(np.float32)).to(torch.bfloat16) for _ in range(2)]
+    img = sk.sc_image(*sc)
+    t = -(-m // 128)
+    assert img.shape == (g * t, d // 64, 2, 2, 64, 64) and img.dtype == torch.bfloat16 and img.is_contiguous()
+    assert img[0, 0].numel() * 2 == 32 * 1024  # one slot of the A ring
+    flat = img.reshape(-1).float().numpy()
+    want = np.zeros(flat.size, np.float32)
+    want[_sc_image_offsets(g, m, d)] = torch.stack(sc, dim=2).float().numpy()
+    np.testing.assert_array_equal(flat, want)  # rows past M are zero
