@@ -39,7 +39,22 @@ Phases, each printed as it runs:
    version's full score rows; each kernel's ms per launch (scoring
    launches and the select timed apart), achieved TFLOP/s (as the kernel
    does the work and as the bound counts it), bound, plain version's ms,
-   and the ptxas report of the wgmma kernels.
+   and the ptxas report of the wgmma kernels;
+7. training (no kernel lies on it: eager PyTorch with autograd).
+   7a: the production retriever (D = H = 1024, bf16, hide-and-seek, T =
+   0.07, AdamW at a constant 1e-4) on a 256-question realistic train split
+   (seed 8), batch 16, 3 warmup steps then two timed epochs: step ms
+   (median, CUDA events), graphs/s, real edges/s, the padded-edge share,
+   TFLOP/s as ``train_flops`` counts it over padded and over real edges with
+   that count's bound at 989 TFLOP/s, peak memory, loss and grad norm, and
+   the validation metrics of phase 4's split with the eval pass's seconds
+   and component sweeps; a remat step; a traced step (device time by
+   kernel, busy share).  7b: one f32 step at D = H = 256 on the card held
+   to the same step on the CPU (``testing.card_vs_cpu_step``) and one bf16
+   step at full width.  7c: the ``train_retriever`` CLI on the card in the
+   small synthetic setting (``testing.small_train_gain``: validation
+   recall@5 must rise by more than 0.05 over the untrained parameters),
+   then ``serve`` on its ``ckpt/best`` through kernel 3.
 
 ``python3 chip_smoke.py --ablation [M]`` runs only an ablation of the three
 wgmma kernels instead: each source built again with a switch of
@@ -90,6 +105,9 @@ POOLED_M = 131072          # bench.py's headline pooled query
 POOLED_B = 128
 POOLED_CHECK = 8           # queries held to the plain versions' full score rows
 ENTITIES, RELATIONS = 262144, 1024
+TRAIN_QUESTIONS = 256      # phase 7a: the train split (16 steps an epoch)
+TRAIN_BATCH = 16           # configs/retriever/production.yaml per_shard_batch
+TRAIN_WARMUP = 3
 
 
 def log(msg: str) -> None:
@@ -675,6 +693,228 @@ def phase_pooled(bundle_np):
                 differing_ids={"per_query": diff1, "fused": diff2}, ptxas=ptxas)
 
 
+def train_flops(edges: int, nodes: int, graphs: int, d: int, h: int) -> float:
+    """FLOP of one training step as this script counts it: 3 x the forward's
+    matrix products, forward = 2 [3 E D^2 (relation projection, q_gate,
+    q_bias) + 2 E ((3D + 1) H + H^2 + 21 D + H) (two directions: state_net_0,
+    state_net_1, struct projection and gate, head) + N D^2 (entity
+    projection) + G D^2 (query projection)]."""
+    fwd = 2 * (3 * edges * d * d + 2 * edges * ((3 * d + 1) * h + h * h + 21 * d + h)
+               + nodes * d * d + graphs * d * d)
+    return 3.0 * fwd
+
+
+def phase_train(smi: str):
+    """7a: timed training at production width; 7b: one step on the card
+    against the CPU; 7c: the train_retriever CLI, then serve on its
+    checkpoint through kernel 3."""
+    import numpy as np
+    import torch
+
+    from evi_rag_tpu_torch.data.feeder import collate_retriever, fixed_bucket_for, iter_stacked_batches, prefetch
+    from evi_rag_tpu_torch.data.synthetic import make_synthetic_dataset
+    from evi_rag_tpu_torch.models.batches import make_tables
+    from evi_rag_tpu_torch.models.losses import RetrieverLossConfig
+    from evi_rag_tpu_torch.models.retriever import Retriever
+    from evi_rag_tpu_torch.train.optim import OptimizerConfig
+    from evi_rag_tpu_torch.train.retriever_trainer import (
+        RetrieverTrainConfig, create_train_state, evaluate_results, make_eval_step, make_train_step)
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    split = dict(emb_dim=D, num_relations=64, min_nodes=128, max_nodes=1024, avg_extra_edges=3.0,
+                 num_entities=16384)
+    train_ds = make_synthetic_dataset(num_samples=TRAIN_QUESTIONS, seed=8, **split)
+    val_ds = make_synthetic_dataset(num_samples=QUESTIONS, seed=7, **split)
+    bucket = fixed_bucket_for(list(train_ds.samples) + list(val_ds.samples), TRAIN_BATCH)
+    edges = np.array([s.edge_index.shape[1] for s in train_ds.samples])
+    log(f"[7a train] splits made in {time.perf_counter() - t0:.1f} s: train {TRAIN_QUESTIONS} questions "
+        f"(seed 8, edges median {int(np.median(edges))} max {edges.max()}), validation {QUESTIONS} (seed 7); "
+        f"bucket graphs {bucket.graphs} nodes {bucket.nodes} edges {bucket.edges}")
+    model = Retriever(emb_dim=D, hidden_dim=H, dropout_p=0.1, compute_dtype="bfloat16", hide_seek_enabled=True,
+                      hide_seek_p_near=0.7, hide_seek_p_far=0.1, hide_seek_bias_near=-2.0, hide_seek_bias_far=-0.5)
+    cfg = RetrieverTrainConfig(loss=RetrieverLossConfig(infonce_temperature=0.07),
+                               optimizer=OptimizerConfig(name="adamw", learning_rate=1e-4), k_values=(10, 100))
+    train_tables = make_tables(train_ds.entity_emb, train_ds.relation_emb, device=dev)
+    val_tables = make_tables(val_ds.entity_emb, val_ds.relation_emb, device=dev)
+    state, tx = create_train_state(model, None, cfg, seed=0, device=dev)
+    step_fn = make_train_step(model, tx, cfg, tables=train_tables)
+    eval_fn = make_eval_step(model, cfg, tables=val_tables)
+
+    def epoch_batches(epoch: int):
+        return prefetch(iter_stacked_batches(
+            train_ds.samples, num_shards=1, per_shard_batch=TRAIN_BATCH, entity_emb=train_ds.entity_emb,
+            relation_emb=train_ds.relation_emb, question_emb=train_ds.question_emb, bucket=bucket,
+            seed=epoch, id_feed=True, pin=True))
+
+    def val_pass():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        results, sweeps = [], 0
+        for i in range(0, QUESTIONS, TRAIN_BATCH):
+            b = collate_retriever(val_ds.samples[i : i + TRAIN_BATCH], entity_emb=val_ds.entity_emb,
+                                  relation_emb=val_ds.relation_emb, question_emb=val_ds.question_emb,
+                                  bucket=bucket, id_feed=True, pin=True)
+            results.append(eval_fn(state.params, b))
+            sweeps += results[-1]["cc_sweeps"]
+        out = evaluate_results(results)
+        return out, time.perf_counter() - t, sweeps
+
+    warm = epoch_batches(100)
+    for _ in range(TRAIN_WARMUP):
+        state, m = step_fn(state, next(warm))
+    torch.cuda.synchronize()
+    del warm
+    epochs = []
+    for epoch in range(2):
+        torch.cuda.reset_peak_memory_stats(dev)
+        starts, ends, real_e, real_n, walls = [], [], 0, 0, time.perf_counter()
+        for batch in epoch_batches(epoch):
+            real_e += int(batch.graph.edge_mask.sum())
+            real_n += int(batch.graph.node_mask.sum())
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            state, m = step_fn(state, batch)
+            e.record()
+            starts.append(s)
+            ends.append(e)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - walls
+        steps = len(starts)
+        ms = float(np.median([a.elapsed_time(b) for a, b in zip(starts, ends)]))
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            raise AssertionError(f"epoch {epoch}: loss {loss} grad_norm {gnorm} not finite")
+        padded = train_flops(bucket.edges, bucket.nodes, bucket.graphs, D, H)
+        real = train_flops(real_e / steps, real_n / steps, TRAIN_BATCH, D, H)
+        peak = torch.cuda.max_memory_allocated(dev)
+        val, val_s, sweeps = val_pass()
+        row = dict(epoch=epoch, steps=steps, step_ms=ms, wall_s=wall, graphs_per_s=steps * TRAIN_BATCH / wall,
+                   real_edges_per_s=real_e / wall, padded_edge_share=1 - real_e / (steps * bucket.edges),
+                   tflops_padded=padded / ms / 1e9, tflops_real=real / ms / 1e9,
+                   bound_ms_padded=padded / PEAK_BF16_FLOPS * 1e3, bound_ms_real=real / PEAK_BF16_FLOPS * 1e3,
+                   peak_gib=peak / 2**30, loss=loss, grad_norm=gnorm, val_s=val_s, cc_sweeps=sweeps,
+                   reach100=val["answer/reachability@100"], recall100=val["edge/recall@100"])
+        epochs.append(row)
+        log(f"[7a train] epoch {epoch}: {steps} steps, step ms median {ms:.2f} (CUDA events), "
+            f"{row['graphs_per_s']:.1f} graphs/s, {row['real_edges_per_s']:.0f} real edges/s, padded-edge "
+            f"share {row['padded_edge_share']:.3f}; TFLOP/s {row['tflops_padded']:.1f} over padded edges "
+            f"(bound {row['bound_ms_padded']:.2f} ms at 989 TFLOP/s), {row['tflops_real']:.1f} over real "
+            f"edges (bound {row['bound_ms_real']:.2f} ms); peak {row['peak_gib']:.2f} GiB; loss {loss:.4f} "
+            f"grad_norm {gnorm:.4f}; validation reachability@100 {row['reach100']:.4f} recall@100 "
+            f"{row['recall100']:.4f}, eval pass {val_s:.2f} s ({sweeps} component sweeps)")
+
+    # Steps with remat: activations recomputed in the backward (the first
+    # call pays the checkpoint machinery's one-time set-up, off the clock).
+    remat_fn = make_train_step(model, tx, dataclasses.replace(cfg, remat=True), tables=train_tables)
+    remat_batches = epoch_batches(200)
+    state, _ = remat_fn(state, next(remat_batches))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    batch = next(remat_batches)
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    state, m = remat_fn(state, batch)
+    e.record()
+    torch.cuda.synchronize()
+    remat = dict(step_ms=s.elapsed_time(e), peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                 loss=float(m["loss"]))
+    if not np.isfinite(remat["loss"]):
+        raise AssertionError("the remat step's loss is not finite")
+    log(f"[7a train] remat step: {remat['step_ms']:.2f} ms (the second remat step), "
+        f"peak {remat['peak_gib']:.2f} GiB, loss {remat['loss']:.4f}")
+    profile = profile_train(step_fn, state, epoch_batches(300))
+
+    # 7b: the card against the CPU.
+    from evi_rag_tpu_torch.testing import bf16_card_step, card_vs_cpu_step
+
+    vs = card_vs_cpu_step()  # TF32 is off (phase 1)
+    if not (vs["loss_rel"] <= 1e-5 and vs["grad_ratio"] <= 1.0 and vs["param_diff"] <= 1e-6):
+        raise AssertionError(f"the card's f32 step differs from the CPU's: {vs}")
+    bf = bf16_card_step(D)
+    if not (np.isfinite(bf["loss"]) and np.isfinite(bf["grad_norm"]) and bf["grads_finite"]):
+        raise AssertionError(f"the bf16 step at D = H = {D} is not finite: {bf}")
+    log(f"[7b card vs cpu] f32 step at D = H = 256, 4 questions ({vs['edges']} edges): loss card "
+        f"{vs['loss_card']:.7f} cpu {vs['loss_cpu']:.7f} (rel {vs['loss_rel']:.2e}, tol 1e-5); worst gradient "
+        f"leaf at {vs['grad_ratio']:.3f} of atol 1e-5 + rtol 1e-3; AdamW on the CPU's gradients: parameters "
+        f"within {vs['param_diff']:.2e} (tol 1e-6); bf16 step at D = H = {D}: loss {bf['loss']:.4f} "
+        f"grad_norm {bf['grad_norm']:.4f}, finite")
+
+    # 7c: train_retriever on the card, then serve its checkpoint through kernel 3.
+    from evi_rag_tpu_torch import cli
+    from evi_rag_tpu_torch.ops import score_kernels as sk
+    from evi_rag_tpu_torch.testing import SMALL_TRAIN_MIN_GAIN, small_train_gain
+    from evi_rag_tpu_torch.train.checkpoint import load_checkpoint
+
+    work = OUT_DIR / "chip_smoke_train"
+    t = time.perf_counter()
+    gain = small_train_gain(ROOT / "configs", work, "cuda")
+    train_s = time.perf_counter() - t
+    if gain["gain"] <= SMALL_TRAIN_MIN_GAIN:
+        raise AssertionError(f"edge/recall@5 rose by {gain['gain']:.4f} <= {SMALL_TRAIN_MIN_GAIN}: {gain}")
+    _, best_meta = load_checkpoint(gain["ckpt"] / "best")   # verifies the digests
+    _, last_meta = load_checkpoint(gain["ckpt"] / "last")
+    if best_meta["params_sha256"] != gain["metrics"]["best_ckpt_sha256"] or not last_meta["has_opt_state"]:
+        raise AssertionError("ckpt/best or ckpt/last does not hold what train_retriever reported")
+    reset_launches()
+    rc = cli.main([
+        "serve", "--configs-dir", str(ROOT / "configs"), f"retriever.ckpt={gain['ckpt'] / 'best'}",
+        "serve.splits=[validation]", "serve.k=20", "serve.k_values=[1, 10, 20]", "serve.fused_threshold=32",
+        "dataset.num_samples=48", "dataset.emb_dim=64", "dataset.max_nodes=16", f"paths.log_dir={work / 'serve'}",
+    ])
+    serve_launches = sk.per_question_topk.launches
+    metrics_files = sorted((work / "serve").glob("**/metrics.json"))
+    if rc != 0 or not metrics_files or serve_launches <= 0:
+        raise AssertionError(f"serve on the trained checkpoint: rc {rc}, kernel 3 launches {serve_launches}")
+    served = json.loads(metrics_files[-1].read_text())
+    log(f"[7c cli] train_retriever on the card in {train_s:.1f} s: validation edge/recall@5 "
+        f"{gain['before']:.4f} untrained -> {gain['after']:.4f} (gain {gain['gain']:.4f} > "
+        f"{SMALL_TRAIN_MIN_GAIN}); ckpt/best and ckpt/last hold their digests; serve on ckpt/best: "
+        f"kernel 3 launches {serve_launches}, recall@10 {served['validation/serve/recall@10']:.4f} "
+        f"recall@20 {served['validation/serve/recall@20']:.4f}")
+    return dict(nvidia_smi=smi, bucket=dataclasses.asdict(bucket), epochs=epochs, remat=remat, profile=profile,
+                card_vs_cpu=vs, bf16_step=bf, cli=dict(before=gain["before"], after=gain["after"],
+                                                       gain=gain["gain"], seconds=train_s),
+                serve=dict(launches=serve_launches, recall=served))
+
+
+def profile_train(step_fn, state, batches):
+    """Device time by kernel and the busy share of one traced train step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = next(batches)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        state, _ = step_fn(state, batch)  # profiler start-up off the clock
+        torch.cuda.synchronize()
+    batch = next(batches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    from torch.autograd import DeviceType
+
+    # Kernels only: the autograd and aten ops that launched them carry the
+    # same device time again.
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if dev_us and ev.key and getattr(ev, "device_type", None) == DeviceType.CUDA:
+            rows.append((ev.key, dev_us / 1e3, ev.count))
+    rows.sort(key=lambda x: -x[1])
+    if not rows:
+        log("[7a profile] device time: not measured (profiler saw no kernel events)")
+        return None
+    busy = sum(r[1] for r in rows)
+    log(f"[7a profile] one train step: wall {wall_ms:.1f} ms (profiled), device kernel time {busy:.1f} ms, "
+        f"busy share {busy / wall_ms:.3f}")
+    for name, ms, n in rows[:12]:
+        log(f"[7a profile]   {ms:9.3f} ms  x{n:5d}  {name[:90]}")
+    return dict(wall_ms=wall_ms, device_ms=busy, top=rows[:12])
+
+
 def wgmma_ptxas(sources) -> list[str]:
     """The ptxas report (registers, spills) of each wgmma kernel of
     ``sources``, with its dynamic shared memory (the same for every mode)."""
@@ -864,6 +1104,7 @@ def main() -> int:
     serve = phase_serve(bundle_np, QUESTIONS)
     cli_metrics = phase_cli()
     pooled = phase_pooled(bundle_np)
+    train = phase_train(smi)
 
     rep = next(r for r in rows if r["M"] == REPORT_M)
     kernels = [{
@@ -874,6 +1115,7 @@ def main() -> int:
         "launches": serve["launches"],
         "group_launches": serve["group_launches"],
         "warmup_launches": serve["warmup_launches"],
+        "launches_serving_trained_ckpt": train["serve"]["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": rep["ms"],
         "plain_ms": rep["plain_ms"],
@@ -906,7 +1148,7 @@ def main() -> int:
             "shape": f"B={POOLED_B} M={POOLED_M} D={D} H={H} S={S} k={K}",
         })
     details = dict(nvidia_smi=smi, build_s=build_s, kernel=rows, serve=serve, cli=cli_metrics,
-                   pooled=pooled, kernels=kernels, wall_s=time.perf_counter() - t_all)
+                   pooled=pooled, train=train, kernels=kernels, wall_s=time.perf_counter() - t_all)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(details, indent=2, default=str))
     log(f"[done] wall {details['wall_s']:.1f} s; details in chiprun_out/chip_smoke.json")
     log(json.dumps({"kernels": kernels}))

@@ -1,16 +1,19 @@
-"""Command line of the port: the ``serve`` task.
+"""Command line of the port: the ``train_retriever`` and ``serve`` tasks.
 
 Usage::
 
-    python -m evi_rag_tpu_torch.cli serve [--configs-dir configs] [key=value ...]
+    python -m evi_rag_tpu_torch.cli <task> [--configs-dir configs] [key=value ...]
 
-Counterpart of ``evi_rag_tpu/cli.py``'s ``serve`` task with the same
-``serve.*`` keys, the same ``configs/`` directory, and the same outputs in
-the run dir: ``<split>_serve.jsonl``, ``<split>.manifest.json`` and
+Counterpart of ``evi_rag_tpu/cli.py``'s tasks of the same names, with the
+same config keys, the same ``configs/`` directory and the same outputs in
+the run dir: ``train_retriever`` writes ``ckpt/best`` and ``ckpt/last``
+(``retriever.train.ckpt_dir``), ``metrics.jsonl`` and ``metrics.json``;
+``serve`` writes ``<split>_serve.jsonl``, ``<split>.manifest.json`` and
 ``metrics.json``.  ``retriever.ckpt`` names a checkpoint in the port's format
-(``train/checkpoint.py``).  ``dataset.source`` is ``synthetic`` or
-``normalized`` (a materialized split from the JAX package's ``build``).
-``device=cpu`` runs on the CPU; the default is the GPU.
+(``train/checkpoint.py``), such as ``train_retriever``'s ``ckpt/best``.
+``dataset.source`` is ``synthetic`` or ``normalized`` (a materialized split
+from the JAX package's ``build``).  ``device=cpu`` runs on the CPU; the
+default is the GPU.
 """
 
 from __future__ import annotations
@@ -94,6 +97,184 @@ def _parity_meta(cfg: dict) -> dict[str, int]:
         "dde_rounds": int(m.get("dde_rounds", 2)),
         "dde_reverse_rounds": int(m.get("dde_reverse_rounds", 2)),
     }
+
+
+def _resolve_dim(value, inferred: int | None, name: str) -> int:
+    if value == "auto" or value is None:
+        if inferred is None:
+            raise ConfigError(f"retriever.model.{name}=auto requires loaded embeddings")
+        return int(inferred)
+    return int(value)
+
+
+def _retriever_model(cfg: dict, *, inferred_dim: int | None = None):
+    from evi_rag_tpu_torch.models.retriever import Retriever
+
+    m = cfg.get("retriever", {}).get("model", {})
+    hs = m.get("hide_seek", {})
+    emb_dim = _resolve_dim(m.get("emb_dim", 64), inferred_dim, "emb_dim")
+    return Retriever(
+        emb_dim=emb_dim,
+        hidden_dim=_resolve_dim(m.get("hidden_dim", emb_dim), inferred_dim, "hidden_dim"),
+        dde_rounds=int(m.get("dde_rounds", 2)),
+        dde_reverse_rounds=int(m.get("dde_reverse_rounds", 2)),
+        dropout_p=float(m.get("dropout_p", 0.1)),
+        direction_mode=str(m.get("direction_mode", "bidirectional")),
+        compute_dtype=str(m.get("compute_dtype", "float32")),
+        hide_seek_enabled=bool(hs.get("enabled", False)),
+        hide_seek_p_near=float(hs.get("p_near", 0.0)),
+        hide_seek_p_far=float(hs.get("p_far", 0.0)),
+        hide_seek_bias_near=float(hs.get("bias_near", 0.0)),
+        hide_seek_bias_far=float(hs.get("bias_far", 0.0)),
+    )
+
+
+def _retriever_train_cfg(cfg: dict):
+    from evi_rag_tpu_torch.models.losses import RetrieverLossConfig
+    from evi_rag_tpu_torch.train.optim import OptimizerConfig
+    from evi_rag_tpu_torch.train.retriever_trainer import RetrieverTrainConfig
+
+    t = cfg.get("retriever", {}).get("train", {})
+    o = t.get("optimizer", {})
+    lo = t.get("loss", {})
+    return RetrieverTrainConfig(
+        loss=RetrieverLossConfig(
+            infonce_temperature=float(lo.get("infonce_temperature", 1.0)),
+            infonce_weight=float(lo.get("infonce_weight", 1.0)),
+            bce_weight=float(lo.get("bce_weight", 0.0)),
+            edge_weight_near=float(lo.get("edge_weight_near", 1.0)),
+            edge_weight_bridge=float(lo.get("edge_weight_bridge", 1.0)),
+        ),
+        optimizer=OptimizerConfig(
+            name=str(o.get("name", "adamw")),
+            learning_rate=float(o.get("learning_rate", 1e-3)),
+            weight_decay=float(o.get("weight_decay", 0.0)),
+            grad_clip_norm=o.get("grad_clip_norm", 1.0),
+            schedule=str(o.get("schedule", "constant")),
+            warmup_steps=int(o.get("warmup_steps", 0)),
+            total_steps=int(o.get("total_steps", 10_000)),
+            groups=_param_groups(o.get("groups")),
+        ),
+        max_epochs=int(t.get("max_epochs", 5)),
+        monitor=str(t.get("monitor", "answer/reachability@100")),
+        monitor_mode=str(t.get("monitor_mode", "max")),
+        patience=int(t.get("patience", 5)),
+        k_values=tuple(int(k) for k in t.get("k_values", DEFAULT_K_GRID)),
+        remat=bool(t.get("remat", False)),
+    )
+
+
+def _param_groups(raw) -> tuple:
+    """Optimizer parameter groups (glob patterns over flax paths -> the
+    optimizer), e.g. ``[{patterns: ["params/state_net_*/kernel"], optimizer: muon}]``."""
+    from evi_rag_tpu_torch.train.optim import ParamGroup
+
+    if not raw:
+        return ()
+    return tuple(
+        ParamGroup(
+            patterns=tuple(g["patterns"]),
+            optimizer=str(g.get("optimizer", "adamw")),
+            lr_scale=float(g.get("lr_scale", 1.0)),
+            weight_decay=g.get("weight_decay"),
+            momentum=float(g.get("momentum", 0.95)),
+        )
+        for g in raw
+    )
+
+
+def _enforce_sub_training_scope(cfg: dict, task: str) -> None:
+    """Retriever training must run on the filtered sub dataset."""
+    ds = cfg.get("dataset", {})
+    if ds.get("source") != "normalized":
+        return
+    name = str(ds.get("name", ""))
+    if not name.endswith("-sub"):
+        raise ConfigError(
+            f"{task} requires a '-sub' dataset variant (got {name!r}); pass dataset=<family>-sub"
+        )
+    if not ds.get("filter"):
+        raise ConfigError(f"{task} requires dataset.filter (sub/nonzero filter json)")
+
+
+@task_wrapper
+def task_train_retriever(cfg: dict, *, run_dir: pathlib.Path) -> dict[str, Any]:
+    """Train the retriever (InfoNCE + optional BCE, AdamW / Muon groups) on
+    the train split, select on the validation split, write ``ckpt/best``
+    and ``ckpt/last`` (with the optimizer state) and ``metrics.json``."""
+    from evi_rag_tpu_torch.data.feeder import collate_retriever, fixed_bucket_for, iter_stacked_batches
+    from evi_rag_tpu_torch.models.batches import make_tables
+    from evi_rag_tpu_torch.train.checkpoint import save_checkpoint
+    from evi_rag_tpu_torch.train.retriever_trainer import evaluate, fit, make_eval_step
+    from evi_rag_tpu_torch.utils.device import resolve_device
+    from evi_rag_tpu_torch.utils.logging import MetricLogger
+
+    device = resolve_device(cfg.get("device"))
+    _enforce_sub_training_scope(cfg, "train_retriever")
+    tcfg = _retriever_train_cfg(cfg)
+    t = cfg.get("retriever", {}).get("train", {})
+    num_shards = int(t.get("num_shards", 1))
+    per_shard = int(t.get("per_shard_batch", 8))
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    if num_shards > cards:
+        raise ConfigError(f"retriever.train.num_shards={num_shards} > available devices {cards}")
+    if num_shards > 1:
+        raise NotImplementedError(
+            "retriever.train.num_shards > 1 needs data-parallel training over several cards, "
+            "which is not ported yet (ROADMAP: sharded pooled path + data-parallel)"
+        )
+
+    train_samples, ent, rel, q_train = _load_split(cfg, "train")
+    model = _retriever_model(cfg, inferred_dim=ent.shape[1])
+    if model.emb_dim != ent.shape[1]:
+        raise ConfigError(
+            f"retriever.model.emb_dim={model.emb_dim} != embedding table dim "
+            f"{ent.shape[1]}; set retriever.model.emb_dim=auto or rebuild"
+        )
+    val_samples, _, _, q_val = _load_split(cfg, "validation")
+    bucket = fixed_bucket_for(list(train_samples) + list(val_samples), per_shard)
+    # Device-resident tables (default on): batches carry int32 rows only.
+    use_tables = bool(t.get("device_tables", True))
+    tables = make_tables(ent, rel, device=device) if use_tables else None
+    pin = device.type == "cuda"
+
+    def train_batches(epoch: int):
+        return iter_stacked_batches(
+            train_samples, num_shards=num_shards, per_shard_batch=per_shard,
+            entity_emb=ent, relation_emb=rel, question_emb=q_train,
+            bucket=bucket, seed=epoch, id_feed=use_tables, pin=pin,
+        )
+
+    def val_batches():
+        for i in range(0, len(val_samples), per_shard):
+            yield collate_retriever(
+                val_samples[i : i + per_shard], entity_emb=ent, relation_emb=rel,
+                question_emb=q_val, bucket=bucket, id_feed=use_tables, pin=pin,
+            )
+
+    best_params, info = fit(
+        model, tcfg, train_batches, val_batches,
+        seed=int(t.get("seed", 0)), resume_from=t.get("resume_from"), tables=tables, device=device,
+    )
+    mlog = MetricLogger(run_dir)
+    for h in info["history"]:
+        mlog.log({**h["val"], "train_loss": h["train_loss"]}, step=h["epoch"])
+
+    ckpt_dir = pathlib.Path(t.get("ckpt_dir", run_dir / "ckpt"))
+    final_state = info["final_state"]
+    digest = save_checkpoint(
+        ckpt_dir / "best", best_params,
+        meta={"parity_meta": model.parity_meta(), "monitor": tcfg.monitor, "score": info["best_score"]},
+    )
+    save_checkpoint(
+        ckpt_dir / "last", final_state.params, meta={"parity_meta": model.parity_meta()},
+        opt_state=final_state.opt_state, step=final_state.step,
+    )
+    final = evaluate(best_params, make_eval_step(model, tcfg, tables=tables), val_batches())
+    metrics = {**final, "best_ckpt_sha256": digest, "epochs": len(info["history"])}
+    save_metrics_json(run_dir / "metrics.json", metrics)
+    log.info("train_retriever done: %s=%.4f", tcfg.monitor, final.get(tcfg.monitor, float("nan")))
+    return metrics
 
 
 def _load_retriever_ckpt(cfg: dict) -> tuple[Any, dict]:
@@ -212,6 +393,7 @@ def task_serve(cfg: dict, *, run_dir: pathlib.Path) -> dict[str, Any]:
 
 TASKS: dict[str, Callable] = {
     "serve": task_serve,
+    "train_retriever": task_train_retriever,
 }
 
 

@@ -1,5 +1,14 @@
-"""A fixed check of the per-question kernel's output, shared by
-``chip_smoke.py`` and ``tests/test_torch_card.py``.
+"""Fixed checks shared by ``chip_smoke.py``, ``scripts/small_train_gain.py``
+and the tests.
+
+``SMALL_TRAIN_OVERRIDES`` is the small synthetic training setting of
+``tests/test_train_retriever.py::test_train_improves_recall`` as
+``train_retriever`` overrides (hidden 64, lr 3e-3, 8 epochs, dropout 0,
+hide-and-seek off, T = 1, monitor ``edge/recall@5``; 16 questions a step,
+on one device), at EMB 64 where the test has 32: the per-question kernel
+takes D % 64 == 0, and ``serve`` runs the trained checkpoint through it.
+Training must raise the validation split's ``edge/recall@5`` over the
+untrained parameters' by more than ``SMALL_TRAIN_MIN_GAIN``.
 
 ``pqt_digest`` runs ``per_question_topk`` on a fixed input made with numpy
 from seeds and hashes its output; ``PQT_DIGEST`` pins that hash for the
@@ -13,12 +22,34 @@ version again.  Needs the card.
 from __future__ import annotations
 
 import hashlib
+import json
+import pathlib
 
 import numpy as np
 import torch
 
+from evi_rag_tpu_torch import cli
+from evi_rag_tpu_torch.data.feeder import collate_retriever, collate_stacked, fixed_bucket_for
+from evi_rag_tpu_torch.data.synthetic import make_synthetic_dataset
+from evi_rag_tpu_torch.models.batches import make_tables
+from evi_rag_tpu_torch.models.retriever import Retriever
 from evi_rag_tpu_torch.ops import score_kernels as sk
-from evi_rag_tpu_torch.train.checkpoint import bundle_from_numpy
+from evi_rag_tpu_torch.ops.graph import batch_to
+from evi_rag_tpu_torch.train.checkpoint import bundle_from_numpy, flatten_tree
+from evi_rag_tpu_torch.train.optim import OptimizerConfig
+from evi_rag_tpu_torch.train.retriever_trainer import (
+    RetrieverTrainConfig, create_train_state, evaluate, loss_and_grads, make_eval_step)
+from evi_rag_tpu_torch.utils.config import load_config
+
+SMALL_TRAIN_OVERRIDES = (
+    "dataset.num_samples=48", "dataset.emb_dim=64", "dataset.max_nodes=16",
+    "retriever.model.emb_dim=64", "retriever.model.hidden_dim=64", "retriever.model.dropout_p=0.0",
+    "retriever.model.hide_seek.enabled=false", "retriever.train.loss.infonce_temperature=1.0",
+    "retriever.train.optimizer.learning_rate=3e-3", "retriever.train.max_epochs=8",
+    "retriever.train.patience=8", "retriever.train.monitor=edge/recall@5",
+    "retriever.train.k_values=[1,5,10]", "retriever.train.per_shard_batch=16",
+)
+SMALL_TRAIN_MIN_GAIN = 0.05
 
 # sha256 of the (vals, ids) bytes, taken on an NVIDIA H100 80GB HBM3.
 PQT_DIGEST = "ff4e80525b8ded1f42bd6c7fcdd02ea20406a5c39338572e2ff3403d2b974beb"
@@ -49,3 +80,84 @@ def pqt_digest(dev) -> str:
     lengths = torch.as_tensor(np.array([m, 300, 37, 0], np.int32), device=dev)
     vals, ids = sk.per_question_topk(bundle, q, h, r, t, s, lengths, k=100)
     return hashlib.sha256(vals.cpu().numpy().tobytes() + ids.cpu().numpy().tobytes()).hexdigest()
+
+
+def small_train_gain(configs_dir, out_dir, device) -> dict:
+    """Run ``train_retriever`` with ``SMALL_TRAIN_OVERRIDES`` on ``device``
+    (writing under ``out_dir``), and evaluate the untrained parameters of the
+    same seed on the same validation batches.  Returns the validation
+    ``edge/recall@5`` before and after, the gain, the run's metrics and its
+    checkpoint directory."""
+    out = pathlib.Path(out_dir)
+    dev = torch.device(device)
+    ckpt = out / "ckpt"
+    overrides = [*SMALL_TRAIN_OVERRIDES, f"device={dev.type}", f"retriever.train.ckpt_dir={ckpt}",
+                 f"paths.log_dir={out / 'logs'}"]
+    if cli.main(["train_retriever", "--configs-dir", str(configs_dir), *overrides]) != 0:
+        raise RuntimeError("train_retriever failed")
+    metrics = json.loads(sorted((out / "logs").glob("**/metrics.json"))[-1].read_text())
+
+    cfg = load_config(str(configs_dir), "train_retriever", overrides)
+    train, ent, rel, _ = cli._load_split(cfg, "train")
+    val, _, _, q_val = cli._load_split(cfg, "validation")
+    per = int(cfg["retriever"]["train"]["per_shard_batch"])
+    bucket = fixed_bucket_for(list(train) + list(val), per)
+    tables = make_tables(ent, rel, device=dev)
+    model = cli._retriever_model(cfg, inferred_dim=ent.shape[1])
+    tcfg = cli._retriever_train_cfg(cfg)
+    state, _ = create_train_state(model, None, tcfg, seed=int(cfg["retriever"]["train"].get("seed", 0)),
+                                  device=dev)
+    batches = (collate_retriever(val[i : i + per], entity_emb=ent, relation_emb=rel, question_emb=q_val,
+                                 bucket=bucket, id_feed=True) for i in range(0, len(val), per))
+    before = evaluate(state.params, make_eval_step(model, tcfg, tables=tables), batches)["edge/recall@5"]
+    after = metrics["edge/recall@5"]
+    return {"before": before, "after": after, "gain": after - before, "metrics": metrics, "ckpt": ckpt}
+
+
+def _step_inputs(dim: int, questions: int, seed: int):
+    ds = make_synthetic_dataset(num_samples=questions, emb_dim=dim, num_relations=64, num_entities=4096,
+                                min_nodes=64, max_nodes=256, avg_extra_edges=3.0, seed=seed)
+    return collate_stacked(ds.samples, num_shards=1, entity_emb=ds.entity_emb, relation_emb=ds.relation_emb,
+                           question_emb=ds.question_emb, bucket=fixed_bucket_for(ds.samples, questions))
+
+
+def card_vs_cpu_step(dim: int = 256, hidden: int = 256, questions: int = 4, seed: int = 0) -> dict:
+    """One f32 train step (dropout 0, hide-and-seek off; the caller turns
+    TF32 off) from the same parameters and batch on the card and on the CPU.
+    Returns the loss's relative difference, the worst gradient leaf's
+    ``max(|g_card - g_cpu| / (1e-5 + 1e-3 |g_cpu|))`` (<= 1 passes atol 1e-5 +
+    rtol 1e-3), and the largest parameter difference after AdamW (lr 1e-4)
+    applies the *CPU's* gradients on both devices."""
+    batch = _step_inputs(dim, questions, seed)
+    cfg = RetrieverTrainConfig(optimizer=OptimizerConfig(name="adamw", learning_rate=1e-4))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = Retriever(emb_dim=dim, hidden_dim=hidden, dropout_p=0.0)
+        state, tx = create_train_state(model, None, cfg, seed=seed, device=dev)
+        loss, _, grads = loss_and_grads(model, cfg, batch_to(batch, torch.device(dev)))
+        runs[dev] = (state, tx, loss.item(), {k: g.detach().clone() for k, g in grads.items()})
+    cpu_grads = runs["cpu"][3]
+    grad_ratio = max(
+        float(((runs["cuda"][3][k].cpu() - g).abs() / (1e-5 + 1e-3 * g.abs())).max()) for k, g in cpu_grads.items())
+    after = {}
+    for dev, (state, tx, _, _) in runs.items():
+        params = flatten_tree(state.params)
+        updates, _ = tx.update({k: g.to(dev) for k, g in cpu_grads.items()}, state.opt_state, params)
+        after[dev] = {k: (params[k].detach() + updates[k]).cpu() for k in params}
+    param_diff = max(float((after["cuda"][k] - v).abs().max()) for k, v in after["cpu"].items())
+    loss_cpu, loss_card = runs["cpu"][2], runs["cuda"][2]
+    return {"loss_cpu": loss_cpu, "loss_card": loss_card, "loss_rel": abs(loss_card - loss_cpu) / abs(loss_cpu),
+            "grad_ratio": grad_ratio, "param_diff": param_diff, "edges": int(batch.graph.edge_mask.sum())}
+
+
+def bf16_card_step(dim: int = 1024, questions: int = 4, seed: int = 0) -> dict:
+    """One bf16 train step on the card at width ``dim`` (D = H): the loss
+    and the gradient norm, both of which must be finite."""
+    batch = _step_inputs(dim, questions, seed)
+    cfg = RetrieverTrainConfig()
+    model = Retriever(emb_dim=dim, hidden_dim=dim, dropout_p=0.1, compute_dtype="bfloat16")
+    state, _ = create_train_state(model, None, cfg, seed=seed, device="cuda")
+    loss, _, grads = loss_and_grads(model, cfg, batch_to(batch, torch.device("cuda")), generator=state.generator)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    norm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values())))
+    return {"loss": loss.item(), "grad_norm": norm, "grads_finite": finite}

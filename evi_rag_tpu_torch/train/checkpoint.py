@@ -2,10 +2,14 @@
 digest, a weights converter and the port's on-disk format.
 
 Counterpart of ``evi_rag_tpu/train/checkpoint.py``.  The directory layout is
-the same ``meta.json`` (schema 1, ``params_sha256``) with the arrays in a
-``state.npz`` instead of an orbax tree, since the port does not depend on
-orbax.  ``params_digest`` gives the same sha256 as the JAX function for the
-same parameter tree, so a checkpoint converted from JAX keeps its digest.
+the same ``meta.json`` (schema 1, ``params_sha256``, ``step``,
+``has_opt_state``) with the arrays in a ``state.npz`` instead of an orbax
+tree, since the port does not depend on orbax: one entry per leaf, keyed by
+its path (``params/params/q_gate/kernel``; the optimizer state, when saved,
+under ``opt_state/``).  ``params_digest`` gives the same sha256 as the JAX
+function for the same parameter tree, so a checkpoint converted from JAX
+keeps its digest, and a port-trained one has the digest JAX computes for
+the same numbers.
 
 Convert a JAX checkpoint (on a machine that has JAX)::
 
@@ -80,16 +84,39 @@ def params_digest(params: Any) -> str:
     return h.hexdigest()
 
 
+def flatten_tree(tree: Any) -> dict[str, Any]:
+    """Nested dicts -> ``{"a/b/c": leaf}`` (keys that hold ``/`` already
+    keep it, so flattening a flat dict is the identity)."""
+    return {"/".join(p): leaf for p, leaf in _leaves(tree)}
+
+
+def unflatten_tree(flat: dict[str, Any]) -> dict[str, Any]:
+    """``{"a/b/c": leaf}`` -> nested dicts."""
+    tree: dict[str, Any] = {}
+    for key, leaf in flat.items():
+        node = tree
+        *parents, last = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = leaf
+    return tree
+
+
 def save_checkpoint(
     path: str | pathlib.Path,
     params: Any,
     *,
     meta: dict[str, Any] | None = None,
+    opt_state: Any = None,
+    step: int | None = None,
 ) -> str:
-    """Save ``{"params": params}`` as ``state.npz`` plus ``meta.json``;
-    returns the params digest."""
+    """Save ``{"params": params}`` (+ ``opt_state`` under ``opt_state/``) as
+    ``state.npz`` plus ``meta.json``; returns the params digest."""
     path = pathlib.Path(path).absolute()
-    arrays = {"/".join(("params",) + p): _to_numpy(leaf) for p, leaf in _leaves(params)}
+    tree: dict[str, Any] = {"params": params}
+    if opt_state is not None:
+        tree["opt_state"] = opt_state
+    arrays = {key: _to_numpy(leaf) for key, leaf in flatten_tree(tree).items()}
     digest = params_digest(params)
     path.mkdir(parents=True, exist_ok=True)
     with (path / STATE_FILENAME).open("wb") as f:
@@ -98,8 +125,8 @@ def save_checkpoint(
     payload = {
         "schema_version": SCHEMA_VERSION,
         "params_sha256": digest,
-        "step": (meta or {}).get("step"),
-        "has_opt_state": False,
+        "step": step if step is not None else (meta or {}).get("step"),
+        "has_opt_state": opt_state is not None,
         **extra,
     }
     (path / META_FILENAME).write_text(json.dumps(payload, indent=2, default=str))
@@ -107,7 +134,9 @@ def save_checkpoint(
 
 
 def load_checkpoint(path: str | pathlib.Path) -> tuple[dict[str, Any], dict[str, Any]]:
-    """Load (tree of numpy arrays, meta); verifies the params digest."""
+    """Load (tree of numpy arrays with ``params`` and, when saved,
+    ``opt_state``; meta with ``step`` and ``has_opt_state``); verifies the
+    params digest."""
     path = pathlib.Path(path).absolute()
     meta_path = path / META_FILENAME
     if not meta_path.exists():
@@ -122,14 +151,8 @@ def load_checkpoint(path: str | pathlib.Path) -> tuple[dict[str, Any], dict[str,
         raise FileNotFoundError(
             f"{state} missing: convert a JAX checkpoint with save_checkpoint first"
         )
-    tree: dict[str, Any] = {}
     with np.load(state, allow_pickle=False) as npz:
-        for key in npz.files:
-            node = tree
-            *parents, leaf = key.split("/")
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = npz[key]
+        tree = unflatten_tree({key: npz[key] for key in npz.files})
     got = params_digest(tree["params"])
     want = meta.get("params_sha256")
     if want and got != want:
@@ -145,6 +168,17 @@ def export_retriever_features(params: Any, parity_meta: dict[str, int]) -> dict[
     if missing:
         raise KeyError(f"retriever params missing feature keys: {missing}")
     return {"features": {k: inner[k] for k in RETRIEVER_FEATURE_KEYS}, "parity_meta": dict(parity_meta)}
+
+
+def validate_parity_meta(expected: dict[str, int], actual: dict[str, int]) -> None:
+    """Hard-fail on any feature-geometry mismatch."""
+    mismatches = {
+        k: (expected.get(k), actual.get(k))
+        for k in set(expected) | set(actual)
+        if int(expected.get(k, -1)) != int(actual.get(k, -1))
+    }
+    if mismatches:
+        raise ValueError(f"parity_meta mismatch (expected, actual): {mismatches}")
 
 
 def bundle_from_numpy(

@@ -1,8 +1,8 @@
 """The port stands alone and runs on the GPU unless told otherwise.
 
 * No file of ``evi_rag_tpu_torch/`` and not ``chip_smoke.py`` imports JAX,
-  flax, orbax or anything of ``evi_rag_tpu`` (an AST scan, so lazy imports
-  inside functions count too).
+  flax, optax, orbax or anything of ``evi_rag_tpu`` (an AST scan, so lazy
+  imports inside functions count too).
 * The default device is CUDA: with no GPU and no explicit CPU request the
   entry points raise instead of running on the CPU.
 """
@@ -15,7 +15,7 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "evi_rag_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "evi_rag_tpu")
 
 
 def _port_files():
@@ -87,3 +87,27 @@ def test_pooled_entry_points_raise_without_gpu(monkeypatch):
         query_topk({"features": {}}, q, index, k=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         score_all({"features": {}}, q, index)
+
+
+def test_training_entry_points_raise_without_gpu(monkeypatch, tmp_path):
+    """``train_retriever``, ``fit``, ``create_train_state`` and
+    ``make_tables`` run on the card unless the CPU is named."""
+    from evi_rag_tpu_torch import cli
+    from evi_rag_tpu_torch.models.batches import make_tables
+    from evi_rag_tpu_torch.models.retriever import Retriever
+    from evi_rag_tpu_torch.train.retriever_trainer import RetrieverTrainConfig, create_train_state, fit
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ent, rel = np.zeros((3, 8), np.float32), np.zeros((2, 8), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_tables(ent, rel)
+    assert make_tables(ent, rel, device="cpu").entity.shape == (4, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.task_train_retriever.__wrapped__({}, run_dir=tmp_path)
+    model = Retriever(emb_dim=8, hidden_dim=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fit(model, RetrieverTrainConfig(), lambda epoch: iter([None]), lambda: iter(()))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_train_state(model, None, RetrieverTrainConfig())
+    with pytest.raises(NotImplementedError, match="data-parallel"):
+        fit(model, RetrieverTrainConfig(), lambda epoch: iter([None]), lambda: iter(()), mesh=object())
