@@ -54,7 +54,25 @@ Phases, each printed as it runs:
    step at full width.  7c: the ``train_retriever`` CLI on the card in the
    small synthetic setting (``testing.small_train_gain``: validation
    recall@5 must rise by more than 0.05 over the untrained parameters),
-   then ``serve`` on its ``ckpt/best`` through kernel 3.
+   then ``serve`` on its ``ckpt/best`` through kernel 3;
+8. the GFlowNet stage (no kernel lies on it either), on phase 7a's
+   retriever, kept as a port checkpoint under ``chiprun_out/``.  8a:
+   ``eval_retriever`` at D = H = 1024 on phase 4's validation split and
+   phase 7a's train split (``eval.g_agent`` defaults): the collate / device
+   / artifact seconds, the agent samples, the store's bytes and the recall
+   metrics.  8b: GFlowNet training at production width on the train store
+   (``configs/experiment/train_gflownet.yaml``: hidden 1024, T = 4, 4
+   rollouts, batch 8, f32 policy), 3 warmup steps then one timed epoch:
+   step ms (median, CUDA events), graphs/s, the bucket, TFLOP/s as
+   ``gfn_flops`` counts it, peak memory, a traced step (device time by
+   kernel, busy share), a remat step and a bf16-policy step.  8c:
+   ``eval_gflownet`` with 10 rollouts on the validation store
+   (``answer_hit@k``, the rollout records) and the eval pass's q/s.  8d: one
+   f32 GFlowNet step at H = 64 from perturbed parameters (every leaf's
+   gradient non-zero) on the card held to the CPU
+   (``testing.gfn_card_vs_cpu_step``).  8e: ``train_retriever ->
+   eval_retriever -> train_gflownet -> eval_gflownet`` through the CLI at the
+   small setting, then 6 steps on one fixed batch must lower the loss.
 
 ``python3 chip_smoke.py --ablation [M]`` runs only an ablation of the three
 wgmma kernels instead: each source built again with a switch of
@@ -78,6 +96,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -93,7 +112,11 @@ K = 100
 G = 16
 SHAPES_M = (256, 1024, 2048, 4096)
 QUESTIONS = 256
-REPORT_M = 2048            # realistic serve buckets: median ~1.2k edges -> m_pad 2048
+# The realistic synthetic split (bench.py's generator settings): phase 4's
+# validation split is seed 7, phase 7a's train split seed 8.
+REALISTIC = dict(emb_dim=D, num_relations=64, min_nodes=128, max_nodes=1024, avg_extra_edges=3.0,
+                 num_entities=16384)
+REPORT_M = 2048           # realistic serve buckets: median ~1.2k edges -> m_pad 2048
 # Kernel vs plain version: both use bf16 operands with f32 sums and round at
 # the same points; f32 sums run in other orders, which can flip a bf16
 # rounding of an A-operand element now and then.  Scores are O(1).
@@ -108,6 +131,11 @@ ENTITIES, RELATIONS = 262144, 1024
 TRAIN_QUESTIONS = 256      # phase 7a: the train split (16 steps an epoch)
 TRAIN_BATCH = 16           # configs/retriever/production.yaml per_shard_batch
 TRAIN_WARMUP = 3
+GFN_DIR = OUT_DIR / "chip_smoke_gfn"  # phase 8: the retriever checkpoint and the run logs stay
+GFN_WORK = GFN_DIR / "work"           # stores, artifacts and checkpoints, removed when phase 8 ends
+GFN_BATCH = 8              # configs/experiment/train_gflownet.yaml batch_size
+GFN_ROLLOUTS = 4           # num_train_rollouts
+GFN_EVAL_ROLLOUTS = 10     # configs/gflownet/default.yaml eval_rollouts
 
 
 def log(msg: str) -> None:
@@ -365,10 +393,7 @@ def phase_serve(bundle_np, num_questions: int):
     from evi_rag_tpu_torch.train.checkpoint import bundle_from_numpy
 
     t0 = time.perf_counter()
-    ds = make_synthetic_dataset(
-        num_samples=num_questions, emb_dim=D, num_relations=64, seed=7,
-        min_nodes=128, max_nodes=1024, avg_extra_edges=3.0, num_entities=16384,
-    )
+    ds = make_synthetic_dataset(num_samples=num_questions, seed=7, **REALISTIC)
     edges = np.array([s.edge_index.shape[1] for s in ds.samples])
     log(f"[4 serve] split: {num_questions} questions, edges median {int(np.median(edges))} "
         f"max {edges.max()}, made in {time.perf_counter() - t0:.1f} s")
@@ -722,10 +747,8 @@ def phase_train(smi: str):
 
     dev = torch.device("cuda", torch.cuda.current_device())
     t0 = time.perf_counter()
-    split = dict(emb_dim=D, num_relations=64, min_nodes=128, max_nodes=1024, avg_extra_edges=3.0,
-                 num_entities=16384)
-    train_ds = make_synthetic_dataset(num_samples=TRAIN_QUESTIONS, seed=8, **split)
-    val_ds = make_synthetic_dataset(num_samples=QUESTIONS, seed=7, **split)
+    train_ds = make_synthetic_dataset(num_samples=TRAIN_QUESTIONS, seed=8, **REALISTIC)
+    val_ds = make_synthetic_dataset(num_samples=QUESTIONS, seed=7, **REALISTIC)
     bucket = fixed_bucket_for(list(train_ds.samples) + list(val_ds.samples), TRAIN_BATCH)
     edges = np.array([s.edge_index.shape[1] for s in train_ds.samples])
     log(f"[7a train] splits made in {time.perf_counter() - t0:.1f} s: train {TRAIN_QUESTIONS} questions "
@@ -824,6 +847,10 @@ def phase_train(smi: str):
     log(f"[7a train] remat step: {remat['step_ms']:.2f} ms (the second remat step), "
         f"peak {remat['peak_gib']:.2f} GiB, loss {remat['loss']:.4f}")
     profile = profile_train(step_fn, state, epoch_batches(300))
+    from evi_rag_tpu_torch.train.checkpoint import save_checkpoint
+
+    retriever_ckpt = GFN_DIR / "retriever"   # phase 8 evaluates and embeds with it
+    save_checkpoint(retriever_ckpt, state.params, meta={"parity_meta": model.parity_meta()})
 
     # 7b: the card against the CPU.
     from evi_rag_tpu_torch.testing import bf16_card_step, card_vs_cpu_step
@@ -875,10 +902,10 @@ def phase_train(smi: str):
     return dict(nvidia_smi=smi, bucket=dataclasses.asdict(bucket), epochs=epochs, remat=remat, profile=profile,
                 card_vs_cpu=vs, bf16_step=bf, cli=dict(before=gain["before"], after=gain["after"],
                                                        gain=gain["gain"], seconds=train_s),
-                serve=dict(launches=serve_launches, recall=served))
+                serve=dict(launches=serve_launches, recall=served), retriever_ckpt=str(retriever_ckpt))
 
 
-def profile_train(step_fn, state, batches):
+def profile_train(step_fn, state, batches, label: str = "7a profile"):
     """Device time by kernel and the busy share of one traced train step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -905,14 +932,339 @@ def profile_train(step_fn, state, batches):
             rows.append((ev.key, dev_us / 1e3, ev.count))
     rows.sort(key=lambda x: -x[1])
     if not rows:
-        log("[7a profile] device time: not measured (profiler saw no kernel events)")
+        log(f"[{label}] device time: not measured (profiler saw no kernel events)")
         return None
     busy = sum(r[1] for r in rows)
-    log(f"[7a profile] one train step: wall {wall_ms:.1f} ms (profiled), device kernel time {busy:.1f} ms, "
+    log(f"[{label}] one train step: wall {wall_ms:.1f} ms (profiled), device kernel time {busy:.1f} ms, "
         f"busy share {busy / wall_ms:.3f}")
     for name, ms, n in rows[:12]:
-        log(f"[7a profile]   {ms:9.3f} ms  x{n:5d}  {name[:90]}")
+        log(f"[{label}]   {ms:9.3f} ms  x{n:5d}  {name[:90]}")
     return dict(wall_ms=wall_ms, device_ms=busy, top=rows[:12])
+
+
+def realistic_loader():
+    """A stand-in for the CLI's ``_load_split`` that returns phase 8's
+    realistic splits, each made once: phase 4's validation split (seed 7)
+    and phase 7a's train split (seed 8).  The CLI's synthetic source (the
+    JAX CLI's too) sets only the generator's sample count, width and node
+    cap, so the realistic splits reach the tasks through this loader."""
+    from evi_rag_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    made: dict = {}
+
+    def load_split(cfg, split):
+        if split not in made:
+            seed, n = {"validation": (7, QUESTIONS), "train": (8, TRAIN_QUESTIONS)}[split]
+            made[split] = make_synthetic_dataset(num_samples=n, seed=seed, **REALISTIC)
+        ds = made[split]
+        return ds.samples, ds.entity_emb, ds.relation_emb, ds.question_emb
+
+    return load_split
+
+
+def gfn_flops(edges: int, nodes: int, graphs: int, h: int, steps: int, rollouts: int) -> float:
+    """FLOP of one GFlowNet train step as this script counts it (matrix
+    products over the bucket's padded edges): per rollout the policy's
+    forward takes 2 E H^2 for edge_base and, in each of the T steps, 2 E H^2
+    for each of k, v and the edge half of the edge head (6 T E H^2), and its
+    backward twice the forward; the frozen embedder runs once a batch with
+    no backward: state_net_0 over [3H + 1] inputs in two directions
+    (12 E H^2), q_gate and q_bias in two directions (8 E H^2), state_net_1
+    (4 E H^2), the relation projection (2 E H^2) and the entity and query
+    projections (2 N H^2 + 2 G H^2)."""
+    policy = 3.0 * rollouts * (2 + 6 * steps) * edges * h * h
+    return policy + 26.0 * edges * h * h + 2.0 * (nodes + graphs) * h * h
+
+
+def latest_metrics(log_dir: pathlib.Path) -> dict:
+    files = sorted(log_dir.glob("**/metrics.json"))
+    if not files:
+        raise AssertionError(f"no metrics.json under {log_dir}")
+    return json.loads(files[-1].read_text())
+
+
+def gfn_train_setup(cfg, bundle, tables, dev, seed: int = 0):
+    """(modules, train state, train step) of a fresh GFlowNet on ``dev``."""
+    import torch
+
+    from evi_rag_tpu_torch.train import gflownet_trainer as gt
+    from evi_rag_tpu_torch.train.checkpoint import flatten_tree
+    from evi_rag_tpu_torch.train.retriever_trainer import TrainState
+
+    modules = gt.build_modules(cfg)
+    params = gt.init_gflownet_params(cfg, modules, seed=seed, device=dev)
+    tx = gt.setup_optimizer(cfg.optimizer, flatten_tree(params))
+    state = TrainState(params=params, opt_state=tx.init(flatten_tree(params)), step=0,
+                       generator=torch.Generator(device=dev).manual_seed(seed + 1))
+    return modules, state, gt.make_gfn_train_step(modules, tx, cfg, bundle, tables=tables)
+
+
+def endless(batches, seed: int):
+    """Batches of the epochs seed, seed + 1, ... one after another."""
+    while True:
+        yield from batches(seed)
+        seed += 1
+
+
+def timed_step(step_fn, state, batch):
+    """(state, metrics, ms by CUDA events) of one step."""
+    import torch
+
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    state, m = step_fn(state, batch)
+    e.record()
+    torch.cuda.synchronize()
+    return state, m, s.elapsed_time(e)
+
+
+def phase_gflownet(smi: str, retriever_ckpt: str):
+    """8a: eval_retriever at production width writes the g_agent stores;
+    8b: timed GFlowNet training on the train store; 8c: eval_gflownet on the
+    validation store (8a-8c on the realistic splits of ``realistic_loader``);
+    8d: one f32 step on the card against the CPU; 8e: the CLI chain at the
+    small setting (no kernel lies on these paths)."""
+    from unittest import mock
+
+    from evi_rag_tpu_torch import cli
+
+    with mock.patch.object(cli, "_load_split", realistic_loader()):
+        out = phase_gflownet_realistic(smi, retriever_ckpt)
+    out["chain"] = phase_gflownet_chain(str(ROOT / "configs"))
+    shutil.rmtree(GFN_WORK)  # ~100 MB of stores, records and checkpoints
+    return out
+
+
+def phase_gflownet_realistic(smi: str, retriever_ckpt: str):
+    """8a-8d (see ``phase_gflownet``)."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from evi_rag_tpu_torch import cli
+    from evi_rag_tpu_torch.data.feeder import fixed_agent_bucket, prefetch
+    from evi_rag_tpu_torch.models.batches import make_tables
+    from evi_rag_tpu_torch.testing import gfn_card_vs_cpu_step
+    from evi_rag_tpu_torch.train import gflownet_trainer as gt
+    from evi_rag_tpu_torch.train.checkpoint import export_retriever_features, load_checkpoint
+    from evi_rag_tpu_torch.utils.config import load_config
+
+    dev = torch.device("cuda")
+    configs, art = str(ROOT / "configs"), GFN_WORK / "art"
+    # The phase-7a retriever's widths, on the card.
+    data = ["device=cuda", f"retriever.model.emb_dim={D}", f"retriever.model.hidden_dim={H}",
+            "retriever.model.compute_dtype=bfloat16"]
+    out: dict = {"nvidia_smi": smi}
+
+    # 8a: eval_retriever on the validation and the train split.
+    for split in ("validation", "train"):
+        logs = GFN_DIR / "logs" / f"eval_retriever_{split}"
+        t = time.perf_counter()
+        rc = cli.main(["eval_retriever", "--configs-dir", configs, *data,
+                       f"retriever.ckpt={retriever_ckpt}", f"eval.splits=[{split}]", f"eval.artifacts_dir={art}",
+                       f"paths.log_dir={logs}"])
+        wall = time.perf_counter() - t
+        m = latest_metrics(logs)
+        store = art / "g_agent" / split
+        if rc != 0 or not (store / "manifest.json").exists() or m.get(f"{split}/num_agent_samples", 0) <= 0 \
+                or not (art / "eval_retriever" / f"{split}.manifest.json").exists():
+            raise AssertionError(f"eval_retriever on {split}: rc {rc}, metrics {m}")
+        row = {k.split("/", 1)[1]: v for k, v in m.items()}
+        row.update(wall_s=wall, store_bytes=sum(f.stat().st_size for f in store.iterdir()))
+        out[f"eval_retriever_{split}"] = row
+        log(f"[8a eval_retriever] {split} ({QUESTIONS} questions, D = H = {D}, bf16, edge_top_k 500, "
+            f"node_softmax, start_keep_ratio 0.25): collate_s {row['phase/collate_s']} device_s "
+            f"{row['phase/device_s']} artifact_s {row['phase/artifact_s']} (task wall {wall:.1f} s with the split's "
+            f"generation); {row['num_agent_samples']} agent samples, store {row['store_bytes']} bytes; "
+            f"edge/recall@100 {row['edge/recall@100']:.4f} answer/reachability@100 "
+            f"{row['answer/reachability@100']:.4f} answer_recall@100 {row['answer_recall@100']:.4f} "
+            f"answer_hit@10 {row['answer_hit@10']:.4f}")
+
+    # 8b: GFlowNet training at production width on the train store.
+    cfg = load_config(configs, "train_gflownet", ["experiment=train_gflownet", *data, f"gflownet.hidden_dim={H}",
+                                                  f"retriever.ckpt={retriever_ckpt}",
+                                                  f"gflownet.g_agent_dir={art / 'g_agent'}"])
+    tree, rmeta = load_checkpoint(retriever_ckpt)
+    bundle_np = export_retriever_features(tree["params"], rmeta["parity_meta"])
+    bundle = gt.bundle_on(bundle_np, dev)
+    gcfg = cli._gfn_cfg(cfg, inferred_dim=H)
+    samples, batches, emb = cli._agent_batches_fn(cfg, "train", GFN_BATCH, seed=0, id_feed=True, pin=True)
+    tables = make_tables(*emb, device=dev)
+    bucket = fixed_agent_bucket(samples, GFN_BATCH)
+    modules, state, step_fn = gfn_train_setup(gcfg, bundle, tables, dev)
+    warm = endless(batches, 100)
+    for _ in range(TRAIN_WARMUP):
+        state, m = step_fn(state, next(warm))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    starts, ends, losses, real_e, t0 = [], [], [], 0, time.perf_counter()
+    for batch in prefetch(batches(0)):
+        real_e += int(batch.graph.edge_mask.sum())
+        s_ev, e_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s_ev.record()
+        state, m = step_fn(state, batch)
+        e_ev.record()
+        starts.append(s_ev)
+        ends.append(e_ev)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = len(starts)
+    ms = float(np.median([a.elapsed_time(b) for a, b in zip(starts, ends)]))
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"8b: non-finite losses {losses}")
+    flops = gfn_flops(bucket.edges, bucket.nodes, bucket.graphs, H, gcfg.actor.num_steps, GFN_ROLLOUTS)
+    train = dict(samples=len(samples), steps=steps, step_ms=ms, wall_s=wall, graphs_per_s=steps * GFN_BATCH / wall,
+                 bucket=dc.asdict(bucket), real_edges_per_step=real_e / steps,
+                 padded_edge_share=1 - real_e / (steps * bucket.edges), peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                 tflop_per_step=flops / 1e12, tflops=flops / ms / 1e9, loss_first=losses[0], loss_last=losses[-1],
+                 bc_weight=float(m["bc_weight"]), answer_hit=float(m["answer_hit"]))
+    log(f"[8b train_gflownet] {len(samples)} train agent samples, batch {GFN_BATCH}, {GFN_ROLLOUTS} rollouts, "
+        f"T = {gcfg.actor.num_steps}, hidden {H}, f32 policy, dropout {gcfg.dropout}, bc_weight {gcfg.bc_weight}, "
+        f"AdamW {gcfg.optimizer.learning_rate} clip {gcfg.optimizer.grad_clip_norm}; bucket graphs {bucket.graphs} "
+        f"nodes {bucket.nodes} edges {bucket.edges} (real {train['real_edges_per_step']:.0f} a step, padded share "
+        f"{train['padded_edge_share']:.3f}); {TRAIN_WARMUP} warmup steps, then {steps} steps: step ms median "
+        f"{ms:.2f} (CUDA events), {train['graphs_per_s']:.1f} graphs/s, {train['tflop_per_step']:.3f} TFLOP a step "
+        f"as counted -> {train['tflops']:.1f} TFLOP/s; peak {train['peak_gib']:.2f} GiB; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}")
+    train["profile"] = profile_train(step_fn, state, endless(batches, 300), label="8b profile")
+    del warm
+    for name, change in (("remat", dict(remat_policy=True)), ("bf16", dict(compute_dtype="bfloat16"))):
+        _, st, fn = gfn_train_setup(dc.replace(gcfg, **change), bundle, tables, dev)
+        extra = endless(batches, 200)
+        st, _ = fn(st, next(extra))  # first call off the clock
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        st, mm, step_ms = timed_step(fn, st, next(extra))
+        row = dict(step_ms=step_ms, peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, loss=float(mm["loss"]))
+        if not np.isfinite(row["loss"]):
+            raise AssertionError(f"8b: the {name} step's loss is not finite: {row}")
+        train[name] = row
+        log(f"[8b train_gflownet] {name} step: {step_ms:.2f} ms, peak {row['peak_gib']:.2f} GiB, loss {row['loss']:.4f}")
+        del st, fn, extra
+    out["train"] = train
+    gfn_ckpt = GFN_WORK / "gfn" / "best"
+    cli.save_gflownet_checkpoint(gfn_ckpt, state.params, bundle_np, {
+        "parity_meta": rmeta["parity_meta"], "retriever_ckpt_sha256": rmeta.get("params_sha256")}, None)
+
+    # 8c: eval_gflownet on the validation store (10 rollouts), through the
+    # CLI for its artifacts, and the eval pass alone for q/s.
+    logs = GFN_DIR / "logs" / "eval_gflownet"
+    rc = cli.main(["eval_gflownet", "--configs-dir", configs, *data, f"gflownet.hidden_dim={H}",
+                   f"gflownet.ckpt={gfn_ckpt}", f"gflownet.g_agent_dir={art / 'g_agent'}",
+                   f"gflownet.eval_rollouts={GFN_EVAL_ROLLOUTS}", "eval.splits=[validation]",
+                   f"eval.artifacts_dir={art}", f"paths.log_dir={logs}"])
+    m = latest_metrics(logs)
+    rollouts = art / "eval_gflownet" / "validation.jsonl"
+    records = rollouts.read_text().splitlines() if rollouts.exists() else []
+    vsamples, vbatches, vemb = cli._agent_batches_fn(cfg, "validation", GFN_BATCH, id_feed=True, pin=True)
+    if rc != 0 or len(records) != len(vsamples) or "validation/answer_hit@1" not in m:
+        raise AssertionError(f"eval_gflownet: rc {rc}, {len(records)} records for {len(vsamples)} samples, {m}")
+    eval_step = gt.make_gfn_eval_step(modules, gcfg, bundle, num_rollouts=GFN_EVAL_ROLLOUTS,
+                                      tables=make_tables(*vemb, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    vb = list(vbatches())
+    eval_step(state.params, vb[0], gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    for b in vb:
+        eval_step(state.params, b, gen)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    out["eval"] = dict({k.split("/", 1)[1]: v for k, v in m.items()}, records=len(records), eval_s=eval_s,
+                       questions_per_s=len(vsamples) / eval_s, peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    log(f"[8c eval_gflownet] validation store ({len(vsamples)} agent samples, {GFN_EVAL_ROLLOUTS} rollouts): "
+        f"answer_hit@1 {m['validation/answer_hit@1']:.4f} @10 {m['validation/answer_hit@10']:.4f}, answer_hit_ref@1 "
+        f"{m['validation/answer_hit_ref@1']:.4f} @10 {m['validation/answer_hit_ref@10']:.4f}; {len(records)} rollout "
+        f"records written; eval pass {eval_s:.2f} s = {out['eval']['questions_per_s']:.1f} q/s, peak "
+        f"{out['eval']['peak_gib']:.2f} GiB")
+
+    # 8d: one f32 step on the card against the CPU (TF32 is off, phase 1).
+    vs = gfn_card_vs_cpu_step()
+    if vs["zero_grad_leaves"] or not (vs["loss_rel"] <= 1e-5 and vs["grad_ratio"] <= 1.0
+                                      and vs["param_diff"] <= 1e-6):
+        raise AssertionError(f"the card's f32 GFlowNet step differs from the CPU's: {vs}")
+    out["card_vs_cpu"] = vs
+    log(f"[8d card vs cpu] f32 GFlowNet step at H = 64, 4 graphs ({vs['edges']} edges), 4 rollouts, parameters "
+        f"perturbed (every leaf's gradient non-zero, the smallest leaf's max |g| {vs['min_leaf_grad']:.3e}): loss "
+        f"card {vs['loss_card']:.7f} cpu {vs['loss_cpu']:.7f} (rel {vs['loss_rel']:.2e}, tol 1e-5); worst gradient "
+        f"leaf at {vs['grad_ratio']:.3f} of atol 1e-5 + rtol 1e-3; AdamW on the CPU's gradients: parameters within "
+        f"{vs['param_diff']:.2e} (tol 1e-6)")
+    return out
+
+
+def phase_gflownet_chain(configs: str):
+    """8e: train_retriever -> eval_retriever (validation, train) ->
+    train_gflownet -> eval_gflownet through the CLI on the card at the small
+    setting; then 6 GFlowNet steps on one fixed train batch, with one fixed
+    set of rollout draws, must lower the loss."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    import torch
+
+    from evi_rag_tpu_torch import cli
+    from evi_rag_tpu_torch.models.batches import make_tables, replicate_agent_batch
+    from evi_rag_tpu_torch.models.gflownet.actor import make_rollout_draws
+    from evi_rag_tpu_torch.ops.graph import batch_to
+    from evi_rag_tpu_torch.train import gflownet_trainer as gt
+    from evi_rag_tpu_torch.train.checkpoint import export_retriever_features, load_checkpoint
+    from evi_rag_tpu_torch.utils.config import load_config
+
+    dev = torch.device("cuda")
+    small = GFN_WORK / "small"
+    art, ck = small / "art", small / "ckpt"
+    common = ["experiment=quick_synthetic", "device=cuda", f"eval.artifacts_dir={art}",
+              f"gflownet.g_agent_dir={art / 'g_agent'}"]
+    stages = [
+        ("train_retriever", [f"retriever.train.ckpt_dir={ck / 'r'}"], [ck / "r" / "best" / "meta.json"]),
+        ("eval_retriever", [f"retriever.ckpt={ck / 'r' / 'best'}", "eval.splits=[validation]",
+                            "eval.g_agent.edge_top_k=50"],
+         [art / "g_agent" / "validation" / "manifest.json", art / "eval_retriever" / "validation.manifest.json"]),
+        ("eval_retriever", [f"retriever.ckpt={ck / 'r' / 'best'}", "eval.splits=[train]", "eval.g_agent.edge_top_k=50"],
+         [art / "g_agent" / "train" / "manifest.json", art / "eval_retriever" / "train.manifest.json"]),
+        ("train_gflownet", [f"retriever.ckpt={ck / 'r' / 'best'}", f"gflownet.ckpt_dir={ck / 'g'}"],
+         [ck / "g" / "best" / "meta.json"]),
+        ("eval_gflownet", [f"gflownet.ckpt={ck / 'g' / 'best'}", "eval.splits=[validation]"],
+         [art / "eval_gflownet" / "validation.manifest.json"]),
+    ]
+    rows = []
+    for i, (task, overrides, outputs) in enumerate(stages):
+        t = time.perf_counter()
+        rc = cli.main([task, "--configs-dir", configs, *common, *overrides, f"paths.log_dir={GFN_DIR / 'logs' / str(i)}"])
+        missing = [str(p) for p in outputs if not p.exists()]
+        if rc != 0 or missing:
+            raise AssertionError(f"8e {task}: rc {rc}, missing {missing}")
+        rows.append(dict(task=task, seconds=time.perf_counter() - t, metrics=latest_metrics(GFN_DIR / "logs" / str(i))))
+    cfg = load_config(configs, "train_gflownet", [*common, f"retriever.ckpt={ck / 'r' / 'best'}"])
+    tree, rmeta = load_checkpoint(ck / "r" / "best")
+    bundle = gt.bundle_on(export_retriever_features(tree["params"], rmeta["parity_meta"]), dev)
+    gcfg = cli._gfn_cfg(cfg, inferred_dim=int(bundle["features"]["q_gate"]["kernel"].shape[0]))
+    gcfg = dc.replace(gcfg, max_steps=2, num_train_rollouts=2, total_steps=50, dropout=0.0,
+                      optimizer=dc.replace(gcfg.optimizer, learning_rate=1e-3))
+    _, batches, emb = cli._agent_batches_fn(cfg, "train", 4, id_feed=True)
+    batch = batch_to(next(batches(0)), dev)
+    _, state, step_fn = gfn_train_setup(gcfg, bundle, make_tables(*emb, device=dev), dev)
+    # One fixed set of draws: the rollouts then change only as the policy
+    # does, and the sampling noise of 2 rollouts does not hide the trend.
+    draws = make_rollout_draws(gcfg.actor, replicate_agent_batch(batch, gcfg.num_train_rollouts),
+                               hidden_dim=gcfg.hidden_dim, dropout=0.0, train=True, sample=True,
+                               generator=torch.Generator(device=dev).manual_seed(0))
+    losses = []
+    for _ in range(6):
+        state, m = step_fn(state, batch, draws=draws)
+        losses.append(float(m["loss"]))
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"8e: the GFlowNet loss on one fixed batch did not fall: {losses}")
+    hit = rows[-1]["metrics"]["validation/answer_hit@1"]
+    log(f"[8e cli chain] " + ", ".join(f"{r['task']} {r['seconds']:.1f} s" for r in rows)
+        + f" (exit 0, manifests written); eval_gflownet answer_hit@1 {hit:.4f}; 6 steps on one fixed batch: loss "
+        + " -> ".join(f"{x:.4f}" for x in losses))
+    return dict(stages=rows, losses=losses)
 
 
 def wgmma_ptxas(sources) -> list[str]:
@@ -1105,6 +1457,7 @@ def main() -> int:
     cli_metrics = phase_cli()
     pooled = phase_pooled(bundle_np)
     train = phase_train(smi)
+    gflownet = phase_gflownet(smi, train["retriever_ckpt"])
 
     rep = next(r for r in rows if r["M"] == REPORT_M)
     kernels = [{
@@ -1148,7 +1501,7 @@ def main() -> int:
             "shape": f"B={POOLED_B} M={POOLED_M} D={D} H={H} S={S} k={K}",
         })
     details = dict(nvidia_smi=smi, build_s=build_s, kernel=rows, serve=serve, cli=cli_metrics,
-                   pooled=pooled, train=train, kernels=kernels, wall_s=time.perf_counter() - t_all)
+                   pooled=pooled, train=train, gflownet=gflownet, kernels=kernels, wall_s=time.perf_counter() - t_all)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(details, indent=2, default=str))
     log(f"[done] wall {details['wall_s']:.1f} s; details in chiprun_out/chip_smoke.json")
     log(json.dumps({"kernels": kernels}))

@@ -1,4 +1,5 @@
-"""Command line of the port: the ``train_retriever`` and ``serve`` tasks.
+"""Command line of the port: ``train_retriever``, ``eval_retriever``,
+``train_gflownet``, ``eval_gflownet`` and ``serve``.
 
 Usage::
 
@@ -8,9 +9,13 @@ Counterpart of ``evi_rag_tpu/cli.py``'s tasks of the same names, with the
 same config keys, the same ``configs/`` directory and the same outputs in
 the run dir: ``train_retriever`` writes ``ckpt/best`` and ``ckpt/last``
 (``retriever.train.ckpt_dir``), ``metrics.jsonl`` and ``metrics.json``;
-``serve`` writes ``<split>_serve.jsonl``, ``<split>.manifest.json`` and
-``metrics.json``.  ``retriever.ckpt`` names a checkpoint in the port's format
-(``train/checkpoint.py``), such as ``train_retriever``'s ``ckpt/best``.
+``eval_retriever`` writes the ``g_agent/<split>`` store and
+``eval_retriever/<split>.jsonl`` under ``eval.artifacts_dir``;
+``train_gflownet`` trains on those stores (``gflownet.g_agent_dir``) and
+writes ``ckpt/best`` (``gflownet.ckpt_dir``); ``eval_gflownet`` writes
+``eval_gflownet/<split>.jsonl``; ``serve`` writes ``<split>_serve.jsonl``, ``<split>.manifest.json`` and
+``metrics.json``.  ``retriever.ckpt`` and ``gflownet.ckpt`` name checkpoints in the port's
+format (``train/checkpoint.py``), such as ``train_retriever``'s ``ckpt/best``.
 ``dataset.source`` is ``synthetic`` or ``normalized`` (a materialized split
 from the JAX package's ``build``).  ``device=cpu`` runs on the CPU; the
 default is the GPU.
@@ -19,6 +24,7 @@ default is the GPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import sys
@@ -287,6 +293,402 @@ def _load_retriever_ckpt(cfg: dict) -> tuple[Any, dict]:
     return tree["params"], meta
 
 
+def _enforce_single_process_eval(cfg: dict) -> None:
+    """Eval metric aggregation is host-side and must not shard across
+    processes (one process: ``torch.distributed`` not initialised, or a
+    world of 1)."""
+    dist = torch.distributed
+    if (dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+            and not cfg.get("eval", {}).get("allow_multiprocess", False)):
+        raise ConfigError(
+            "eval tasks require a single process (metric aggregation is "
+            "host-side); set eval.allow_multiprocess=true to override"
+        )
+
+
+def _question_lookup(cfg: dict) -> dict[str, tuple[str, list[str] | None]]:
+    ds = cfg.get("dataset", {})
+    if ds.get("source") != "normalized":
+        return {}
+    import pyarrow.parquet as pq
+
+    root = pathlib.Path(ds["normalized_dir"])
+    rows = pq.read_table(root / "questions.parquet").to_pylist()
+    return {r["graph_id"]: (r["question"], list(r.get("a_entity") or []) or None) for r in rows}
+
+
+def _to_host(res: dict) -> dict:
+    return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v) for k, v in res.items()}
+
+
+@task_wrapper
+def task_eval_retriever(cfg: dict, *, run_dir: pathlib.Path) -> dict[str, Any]:
+    """Evaluate a retriever checkpoint on each split in one forward pass
+    that feeds the metrics, the ranking metrics and the artifacts: the
+    ``g_agent/<split>`` store and ``eval_retriever/<split>.jsonl``."""
+    from evi_rag_tpu_torch.data.feeder import collate_retriever, fixed_bucket_for
+    from evi_rag_tpu_torch.data.g_agent import AgentSettings, build_agent_sample
+    from evi_rag_tpu_torch.eval.artifacts import save_agent_store, topk_record_for_sample, write_topk_edges
+    from evi_rag_tpu_torch.models.batches import make_tables
+    from evi_rag_tpu_torch.train.retriever_trainer import evaluate, evaluate_results, make_eval_step
+    from evi_rag_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(cfg.get("device"))
+    _enforce_single_process_eval(cfg)
+    # eval.datasets: dataset groups evaluated in sequence, each into its own
+    # run and artifacts subdirectory.
+    variants = cfg.get("eval", {}).get("datasets")
+    if variants:
+        import copy
+
+        from evi_rag_tpu_torch.utils.config import _load_group
+
+        combined: dict[str, Any] = {}
+        for name in variants:
+            sub_cfg = copy.deepcopy(cfg)
+            sub_cfg["eval"] = dict(sub_cfg.get("eval", {}))
+            sub_cfg["eval"].pop("datasets", None)
+            sub_cfg["dataset"] = _load_group(pathlib.Path(cfg.get("_configs_dir", "configs")), "dataset", str(name))
+            sub_dir = run_dir / str(name)
+            sub_dir.mkdir(parents=True, exist_ok=True)
+            sub_cfg["eval"]["artifacts_dir"] = str(
+                pathlib.Path(cfg["eval"].get("artifacts_dir", run_dir / "artifacts")) / str(name))
+            m = task_eval_retriever.__wrapped__(sub_cfg, run_dir=sub_dir)
+            combined.update({f"{name}/{k}": v for k, v in m.items()})
+        save_metrics_json(run_dir / "metrics.json", combined)
+        return combined
+
+    e = cfg.get("eval", {})
+    splits = list(e.get("splits", ["validation", "test"]))
+    _, first_ent, first_rel, _ = _load_split(cfg, splits[0])
+    model = _retriever_model(cfg, inferred_dim=first_ent.shape[1]).to(device)
+    params, _meta = _load_retriever_ckpt(cfg)
+    tcfg = _retriever_train_cfg(cfg)
+    artifacts_dir = pathlib.Path(e.get("artifacts_dir", run_dir / "artifacts"))
+    ag = e.get("g_agent", {})
+    settings = AgentSettings(
+        edge_top_k=int(ag.get("edge_top_k", 500)),
+        max_hops=int(ag.get("max_hops", 3)),
+        apply_hop_filter=bool(ag.get("apply_hop_filter", False)),
+        score_mode=str(ag.get("score_mode", "node_softmax")),
+        allow_empty_answer=bool(ag.get("allow_empty_answer", True)),
+        start_keep_ratio=float(ag.get("start_keep_ratio", 0.25)),
+        start_min_edges=int(ag.get("start_min_edges", 1)),
+        start_max_edges=int(ag["start_max_edges"]) if ag.get("start_max_edges") is not None else None,
+    )
+    # The device-resident tables come from the first split (as the JAX task
+    # does; a normalized dataset shares one table file across splits).
+    use_tables = bool(e.get("device_tables", True))
+    tables = make_tables(first_ent, first_rel, device=device) if use_tables else None
+    pin = device.type == "cuda"
+    eval_step = make_eval_step(model, tcfg, tables=tables)
+    per_batch = int(e.get("batch_size", 8))
+    id2e, id2r = _vocab_maps(cfg)
+    questions = _question_lookup(cfg)
+
+    all_metrics: dict[str, Any] = {}
+    for split in splits:
+        samples, ent, rel, q = _load_split(cfg, split)
+        if not samples:
+            continue
+        bucket = fixed_bucket_for(samples, per_batch)
+
+        def batches():
+            for i in range(0, len(samples), per_batch):
+                yield collate_retriever(samples[i : i + per_batch], entity_emb=ent, relation_emb=rel,
+                                        question_emb=q, bucket=bucket, id_feed=use_tables, pin=pin)
+
+        write_artifacts = bool(e.get("write_artifacts", True))
+        want_ranking = bool(e.get("ranking_metrics", True))
+        if not (write_artifacts or want_ranking):
+            # Metric-only mode: no materialization.
+            split_metrics = evaluate(params, eval_step, batches())
+            all_metrics.update({f"{split}/{k}": v for k, v in split_metrics.items()})
+            continue
+
+        # ONE forward pass per split feeds the metric accumulator and the
+        # artifact / ranking builders.
+        agent_samples, topk_records, rank_samples = [], [], []
+        phase = {"collate_s": 0.0, "device_s": 0.0, "artifact_s": 0.0}
+
+        def artifact_pass():
+            # Dispatch-ahead: batch i + 1 is queued before batch i's results
+            # are copied to the host, so the host's artifact building
+            # overlaps the device; device_s is the time the host waits.
+            pend = None  # (batch, res, chunk)
+            i = 0
+            it = batches()
+            while True:
+                t0 = time.perf_counter()
+                batch = next(it, None)
+                phase["collate_s"] += time.perf_counter() - t0
+                nxt = None
+                if batch is not None:
+                    t0 = time.perf_counter()
+                    res = eval_step(params, batch)
+                    phase["device_s"] += time.perf_counter() - t0
+                    nxt = (batch, res, samples[i : i + per_batch])
+                    i += per_batch
+                if pend is not None:
+                    pbatch, pres, pchunk = pend
+                    t0 = time.perf_counter()
+                    pres = _to_host(pres)
+                    phase["device_s"] += time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    collect(pbatch, pres, pchunk)
+                    phase["artifact_s"] += time.perf_counter() - t0
+                    yield pres
+                if nxt is None:
+                    break
+                pend = nxt
+
+        def collect(batch, res, chunk):
+            scores, lf, lb = res["logits"], res["logits_fwd"], res["logits_bwd"]
+            eb = batch.graph.edge_batch.numpy()
+            emask = batch.graph.edge_mask.numpy()
+            for g, s in enumerate(chunk):
+                sel = np.nonzero((eb == g) & emask)[0]
+                s_scores = scores[sel]
+                ent_ids = s.node_entity_ids if s.node_entity_ids is not None else np.arange(s.num_nodes, dtype=np.int64)
+                ans_ids = s.answer_entity_ids if s.answer_entity_ids is not None else ent_ids[s.answer_locals]
+                if want_ranking:
+                    rank_samples.append({
+                        "scores": s_scores, "labels": s.edge_labels.astype(np.float32),
+                        "answer_ids": np.asarray(ans_ids), "head_ids": ent_ids[s.edge_index[0]],
+                        "tail_ids": ent_ids[s.edge_index[1]],
+                    })
+                if not write_artifacts:
+                    continue
+                a = build_agent_sample(
+                    sample_id=s.sample_id, question_id=s.question_id, heads=s.edge_index[0],
+                    tails=s.edge_index[1], relations=s.edge_relations, labels=s.edge_labels.astype(np.float32),
+                    scores=s_scores, node_entity_ids=ent_ids, node_embedding_ids=s.node_embedding_ids,
+                    start_entity_ids=ent_ids[s.topic_locals], answer_entity_ids=ans_ids, settings=settings,
+                )
+                if a is not None:
+                    agent_samples.append(a)
+                topk_records.append(topk_record_for_sample(
+                    sample_id=s.sample_id, scores=s_scores, logits_fwd=lf[sel], logits_bwd=lb[sel],
+                    heads_global=ent_ids[s.edge_index[0]], rels=np.asarray(s.edge_relations),
+                    tails_global=ent_ids[s.edge_index[1]], k_values=tcfg.k_values,
+                    labels=s.edge_labels.astype(np.float32), answer_entity_ids=ans_ids,
+                    question=questions.get(s.sample_id, (None, None))[0],
+                    id2entity=id2e or None, id2relation=id2r or None,
+                ))
+
+        split_metrics = evaluate_results(artifact_pass())
+        all_metrics.update({f"{split}/{k}": v for k, v in split_metrics.items()})
+        all_metrics.update({f"{split}/phase/{k}": round(v, 3) for k, v in phase.items()})
+        if want_ranking and rank_samples:
+            from evi_rag_tpu_torch.eval.ranking import compute_answer_hit, compute_answer_recall, compute_ranking_metrics
+
+            stats = compute_ranking_metrics(rank_samples, tcfg.k_values)
+            all_metrics.update({f"{split}/{k}": v for k, v in stats.as_flat_dict("ranking/").items()})
+            all_metrics.update({f"{split}/{k}": v for k, v in compute_answer_recall(rank_samples, tcfg.k_values).items()})
+            all_metrics.update({f"{split}/{k}": v for k, v in compute_answer_hit(rank_samples, tcfg.k_values).items()})
+        if not write_artifacts:
+            continue
+        save_agent_store(agent_samples, artifacts_dir / "g_agent" / split, split=split,
+                         settings_meta=dataclasses.asdict(settings))
+        write_topk_edges(topk_records, artifacts_dir / "eval_retriever", split=split, k_values=tcfg.k_values)
+        all_metrics[f"{split}/num_agent_samples"] = len(agent_samples)
+    save_metrics_json(run_dir / "metrics.json", all_metrics)
+    return all_metrics
+
+
+def _gfn_cfg(cfg: dict, *, inferred_dim: int | None = None):
+    from evi_rag_tpu_torch.models.gflownet.reward import RewardConfig
+    from evi_rag_tpu_torch.train.gflownet_trainer import GFlowNetConfig
+    from evi_rag_tpu_torch.train.optim import OptimizerConfig
+
+    g = cfg.get("gflownet", {})
+    r = g.get("reward", {})
+    o = g.get("optimizer", {})
+    return GFlowNetConfig(
+        hidden_dim=_resolve_dim(g.get("hidden_dim", 64), inferred_dim, "hidden_dim"),
+        max_steps=int(g.get("max_steps", 3)),
+        stop_on_answer=bool(g.get("stop_on_answer", True)),
+        policy_temperature=float(g.get("policy_temperature", 1.0)),
+        eval_temperature=float(g.get("eval_temperature", 1.0)),
+        num_train_rollouts=int(g.get("num_train_rollouts", 4)),
+        use_state_dde=bool(g.get("use_state_dde", False)),
+        reward=RewardConfig(
+            success_reward=float(r.get("success_reward", 1.0)),
+            failure_reward=float(r.get("failure_reward", 1e-4)),
+            semantic_coef=float(r.get("semantic_coef", 1.0)),
+            length_coef=float(r.get("length_coef", 1.0)),
+        ),
+        bc_weight=float(g.get("bc_weight", 0.0)),
+        bc_hold_ratio=float(g.get("bc_hold_ratio", 0.0)),
+        bc_decay_ratio=float(g.get("bc_decay_ratio", 0.0)),
+        total_steps=int(g.get("total_steps", 1000)),
+        eval_rollout_prefixes=tuple(int(k) for k in g.get("eval_rollout_prefixes", (1, 10, 25, 50, 100))),
+        optimizer=OptimizerConfig(
+            name=str(o.get("name", "adamw")),
+            learning_rate=float(o.get("learning_rate", 1e-4)),
+            grad_clip_norm=o.get("grad_clip_norm", 1.0),
+        ),
+        max_epochs=int(g.get("max_epochs", 5)),
+        patience=int(g.get("patience", 5)),
+        dropout=float(g.get("dropout", 0.1)),
+        cache_frozen_embed=bool(g.get("cache_frozen_embed", False)),
+        compute_dtype=str(g.get("compute_dtype", "float32")),
+        precompute_policy=bool(g.get("precompute_policy", True)),
+        # false | true | "dots"
+        remat_policy=(lambda v: v if isinstance(v, str) else bool(v))(g.get("remat_policy", False)),
+        sample_then_score=bool(g.get("sample_then_score", False)),
+    )
+
+
+def _agent_batches_fn(cfg: dict, split: str, batch_size: int, *, seed: int = 0, id_feed: bool = False,
+                      pin: bool = False):
+    """(agent samples, ``batches(epoch)``, (entity, relation) tables) of a
+    split's g_agent store; the train split drops unreachable samples and is
+    shuffled with ``default_rng([seed, epoch])``."""
+    from evi_rag_tpu_torch.data.feeder import collate_agent, fixed_agent_bucket
+    from evi_rag_tpu_torch.eval.artifacts import load_agent_store
+
+    store_dir = pathlib.Path(cfg.get("gflownet", {})["g_agent_dir"]) / split
+    agent_samples = load_agent_store(store_dir, drop_unreachable=split == "train")
+    if not agent_samples:
+        raise ConfigError(f"no agent samples in {store_dir}")
+    _, ent, rel, q = _load_split(cfg, split)
+    bucket = fixed_agent_bucket(agent_samples, batch_size)
+
+    def batches(epoch: int = 0):
+        order = np.arange(len(agent_samples))
+        if split == "train":
+            np.random.default_rng([seed, epoch]).shuffle(order)
+        for i in range(0, len(order), batch_size):
+            yield collate_agent([agent_samples[j] for j in order[i : i + batch_size]], entity_emb=ent,
+                                relation_emb=rel, question_emb=q, bucket=bucket, id_feed=id_feed, pin=pin)
+
+    return agent_samples, batches, (ent, rel)
+
+
+def save_gflownet_checkpoint(path, params, bundle: dict, retriever_meta: dict, score) -> str:
+    """``{"gflownet": params, "retriever_bundle": bundle}`` with
+    ``retriever_meta`` (parity_meta + the retriever checkpoint's digest)."""
+    from evi_rag_tpu_torch.train.checkpoint import save_checkpoint
+
+    return save_checkpoint(path, {"gflownet": params, "retriever_bundle": bundle},
+                           meta={"retriever_meta": retriever_meta, "score": score})
+
+
+@task_wrapper
+def task_train_gflownet(cfg: dict, *, run_dir: pathlib.Path) -> dict[str, Any]:
+    """Train the GFlowNet on the train split's g_agent store with the frozen
+    retriever of ``retriever.ckpt``; select on the validation store."""
+    from evi_rag_tpu_torch.models.batches import make_tables
+    from evi_rag_tpu_torch.train.checkpoint import export_retriever_features, load_checkpoint
+    from evi_rag_tpu_torch.train.gflownet_trainer import fit_gflownet
+    from evi_rag_tpu_torch.utils.logging import MetricLogger
+    from evi_rag_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(cfg.get("device"))
+    _enforce_sub_training_scope(cfg, "train_gflownet")
+    ckpt = get_dotted(cfg, "retriever.ckpt")
+    if not ckpt:
+        raise ConfigError("train_gflownet requires retriever.ckpt")
+    tree, rmeta = load_checkpoint(ckpt)
+    bundle = export_retriever_features(tree["params"], rmeta["parity_meta"])
+    bundle_dim = int(np.asarray(bundle["features"]["q_gate"]["kernel"]).shape[0])
+    gcfg = _gfn_cfg(cfg, inferred_dim=bundle_dim)
+    if gcfg.hidden_dim != bundle_dim:
+        raise ConfigError(f"gflownet.hidden_dim={gcfg.hidden_dim} != retriever feature dim {bundle_dim}; "
+                          "set gflownet.hidden_dim=auto")
+    g = cfg.get("gflownet", {})
+    bs = int(g.get("batch_size", 8))
+    run_seed = int(g.get("seed", 0))
+    use_tables = bool(g.get("device_tables", True))
+    pin = device.type == "cuda"
+    _, train_batches, emb = _agent_batches_fn(cfg, "train", bs, seed=run_seed, id_feed=use_tables, pin=pin)
+    _, val_batches, _ = _agent_batches_fn(cfg, "validation", bs, id_feed=use_tables, pin=pin)
+    tables = make_tables(*emb, device=device) if use_tables else None
+
+    best_params, info = fit_gflownet(gcfg, bundle, train_batches, lambda: val_batches(), seed=run_seed,
+                                     tables=tables, device=device)
+    ckpt_dir = pathlib.Path(g.get("ckpt_dir", run_dir / "ckpt"))
+    retriever_meta = {"parity_meta": rmeta["parity_meta"], "retriever_ckpt_sha256": rmeta.get("params_sha256")}
+    save_gflownet_checkpoint(ckpt_dir / "best", best_params, bundle, retriever_meta, info["best_score"])
+    mlog = MetricLogger(run_dir)
+    for h in info["history"]:
+        mlog.log({**h["val"], "train_loss": h["train_loss"]}, step=h["epoch"])
+    metrics = {"best_score": info["best_score"], "epochs": len(info["history"])}
+    if info["history"]:
+        metrics.update({f"final/{k}": v for k, v in info["history"][-1]["val"].items()})
+    save_metrics_json(run_dir / "metrics.json", metrics)
+    return metrics
+
+
+@task_wrapper
+def task_eval_gflownet(cfg: dict, *, run_dir: pathlib.Path) -> dict[str, Any]:
+    """Best-of-k rollouts of a GFlowNet checkpoint on each split's g_agent
+    store: ``answer_hit@k`` metrics and ``eval_gflownet/<split>.jsonl``
+    rollout + candidate-chain records from the same pass."""
+    from evi_rag_tpu_torch.eval.artifacts import rollout_record_for_sample, write_rollout_records
+    from evi_rag_tpu_torch.models.batches import make_tables
+    from evi_rag_tpu_torch.train.checkpoint import load_checkpoint, validate_parity_meta
+    from evi_rag_tpu_torch.train.gflownet_trainer import (
+        build_modules, bundle_on, evaluate_gflownet_results, make_gfn_eval_step)
+    from evi_rag_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(cfg.get("device"))
+    ckpt = get_dotted(cfg, "gflownet.ckpt")
+    if not ckpt:
+        raise ConfigError("eval_gflownet requires gflownet.ckpt")
+    tree, meta = load_checkpoint(ckpt)
+    params = tree["params"]["gflownet"]
+    bundle = bundle_on(tree["params"]["retriever_bundle"], device)
+    # The feature-geometry contract is checked before any compute.
+    recorded = (meta.get("retriever_meta") or {}).get("parity_meta")
+    if recorded:
+        validate_parity_meta({k: int(v) for k, v in recorded.items()}, bundle["parity_meta"])
+    gcfg = _gfn_cfg(cfg, inferred_dim=int(bundle["features"]["q_gate"]["kernel"].shape[0]))
+    modules = build_modules(gcfg).to(device)
+    g = cfg.get("gflownet", {})
+    bs = int(g.get("batch_size", 8))
+    num_rollouts = int(g.get("eval_rollouts", max(gcfg.eval_rollout_prefixes)))
+    splits = list(cfg.get("eval", {}).get("splits", ["validation", "test"]))
+    artifacts_dir = pathlib.Path(cfg.get("eval", {}).get("artifacts_dir", run_dir / "artifacts"))
+    id2e, id2r = _vocab_maps(cfg)
+    use_tables = bool(g.get("device_tables", True))
+    pin = device.type == "cuda"
+    tables = None
+    if use_tables:
+        _, ent0, rel0, _ = _load_split(cfg, splits[0])
+        tables = make_tables(ent0, rel0, device=device)
+    eval_step = make_gfn_eval_step(modules, gcfg, bundle, num_rollouts=num_rollouts, tables=tables,
+                                   collect_rollouts=True)
+    all_metrics: dict[str, Any] = {}
+    for split in splits:
+        agent_samples, batches, _ = _agent_batches_fn(cfg, split, bs, id_feed=use_tables, pin=pin)
+        records: list[dict] = []
+        gen = torch.Generator(device=device).manual_seed(7)
+
+        def results():
+            idx = 0
+            for batch in batches():
+                res = eval_step(params, batch, gen)
+                host = _to_host({k: res[k] for k in ("rollout_actions", "rollout_directions", "rollout_hits")})
+                acts, dirs, hits = host["rollout_actions"], host["rollout_directions"], host["rollout_hits"]
+                eptr = batch.graph.edge_ptr.numpy()
+                n_real = int(batch.graph.graph_mask.sum())
+                for gi in range(n_real):
+                    local = np.where(acts[:, gi] >= 0, acts[:, gi] - eptr[gi], -1)
+                    records.append(rollout_record_for_sample(
+                        agent_samples[idx + gi], actions_local=local, directions=dirs[:, gi],
+                        answer_hits=hits[:, gi].astype(bool), id2entity=id2e or None, id2relation=id2r or None))
+                idx += n_real
+                yield res
+
+        m = evaluate_gflownet_results(results())
+        all_metrics.update({f"{split}/{k}": v for k, v in m.items()})
+        write_rollout_records(records, artifacts_dir / "eval_gflownet", split=split, num_rollouts=num_rollouts)
+    save_metrics_json(run_dir / "metrics.json", all_metrics)
+    return all_metrics
+
+
 @task_wrapper
 def task_serve(cfg: dict, *, run_dir: pathlib.Path) -> dict[str, Any]:
     """Checkpoint -> pre-projected index -> batched per-question top-k over
@@ -392,8 +794,11 @@ def task_serve(cfg: dict, *, run_dir: pathlib.Path) -> dict[str, Any]:
 
 
 TASKS: dict[str, Callable] = {
-    "serve": task_serve,
     "train_retriever": task_train_retriever,
+    "eval_retriever": task_eval_retriever,
+    "train_gflownet": task_train_gflownet,
+    "eval_gflownet": task_eval_gflownet,
+    "serve": task_serve,
 }
 
 

@@ -1,6 +1,7 @@
-"""Bucketed batch collation: samples -> padded retriever batches.
+"""Bucketed batch collation: samples -> padded retriever and agent batches.
 
-Counterpart of the retriever half of ``evi_rag_tpu/data/feeder.py``, with
+Counterpart of ``evi_rag_tpu/data/feeder.py`` (the stacked agent layout,
+``collate_agent_stacked``, is the data-parallel one and is not ported), with
 the same bucket policy (node and edge totals rounded up to a base times a
 power of two, one graph slot reserved for the padding graph), the same
 numpy shuffle (``default_rng(seed)``), so both packages see the same batches
@@ -17,8 +18,9 @@ from typing import Iterator, Sequence
 import numpy as np
 import torch
 
+from evi_rag_tpu_torch.data.g_agent import AgentSample
 from evi_rag_tpu_torch.data.sample import RetrievalSample
-from evi_rag_tpu_torch.models.batches import RetrieverBatch
+from evi_rag_tpu_torch.models.batches import AgentBatch, PairSupervision, RetrieverBatch
 from evi_rag_tpu_torch.ops.graph import GraphBatch, map_tensors, pad_graph_arrays
 
 
@@ -196,6 +198,117 @@ def _worst_batch_sum(values: Sequence[int], batch_size: int) -> int:
     """Upper bound on any batch's total under ANY ordering: the sum of the
     ``batch_size`` largest samples."""
     return int(sum(sorted(values, reverse=True)[:batch_size]))
+
+
+def collate_agent(
+    samples: Sequence[AgentSample],
+    *,
+    entity_emb: np.ndarray,
+    relation_emb: np.ndarray,
+    question_emb: np.ndarray,
+    bucket: Bucket,
+    id_feed: bool = False,
+    pin: bool = False,
+) -> AgentBatch:
+    """Pack agent samples into one padded AgentBatch (GFlowNet env input).
+
+    ``id_feed`` and ``pin``: see ``collate_retriever``."""
+    G, N, E, P = bucket.graphs, bucket.nodes, bucket.edges, bucket.pairs
+    pad_graph = G - 1
+
+    graph = pad_graph_arrays(
+        edge_index=[np.stack([s.edge_head_locals, s.edge_tail_locals]).astype(np.int32) for s in samples],
+        num_nodes=[s.num_nodes for s in samples],
+        bucket_graphs=G, bucket_nodes=N, bucket_edges=E,
+    )
+
+    d = entity_emb.shape[1]
+    if id_feed:
+        node_rows = np.full(N, entity_emb.shape[0], dtype=np.int32)
+        edge_rows = np.full(E, relation_emb.shape[0], dtype=np.int32)
+        node_emb = edge_emb = None
+    else:
+        node_emb = np.zeros((N, d), dtype=np.float32)
+        edge_emb = np.zeros((E, relation_emb.shape[1]), dtype=np.float32)
+        node_rows = edge_rows = None
+    node_is_nontext = np.zeros(N, dtype=bool)
+    node_is_start = np.zeros(N, dtype=bool)
+    node_is_answer = np.zeros(N, dtype=bool)
+    edge_scores = np.zeros(E, dtype=np.float32)
+    edge_relations = np.zeros(E, dtype=np.int32)
+    edge_labels = np.zeros(E, dtype=np.float32)
+    q_emb = np.zeros((G, question_emb.shape[1]), dtype=np.float32)
+    is_dummy = np.zeros(G, dtype=bool)
+
+    pair_batch = np.full(P, pad_graph, dtype=np.int32)
+    pair_start = np.zeros(P, dtype=np.int32)
+    pair_answer = np.zeros(P, dtype=np.int32)
+    pair_len = np.zeros(P, dtype=np.int32)
+    pair_mask = np.zeros(P, dtype=bool)
+
+    n_off = e_off = p_off = 0
+    for g, s in enumerate(samples):
+        nn, ne = s.num_nodes, s.num_edges
+        ids = s.node_embedding_ids
+        if id_feed:
+            node_rows[n_off : n_off + nn] = ids
+            edge_rows[e_off : e_off + ne] = s.edge_relations
+        else:
+            node_emb[n_off : n_off + nn] = entity_emb[ids]
+            edge_emb[e_off : e_off + ne] = relation_emb[s.edge_relations]
+        node_is_nontext[n_off : n_off + nn] = ids == 0
+        node_is_start[n_off + s.start_node_locals] = True
+        node_is_answer[n_off + s.answer_node_locals] = True
+        edge_scores[e_off : e_off + ne] = s.edge_scores
+        edge_relations[e_off : e_off + ne] = s.edge_relations
+        edge_labels[e_off : e_off + ne] = s.edge_labels
+        q_emb[g] = question_emb[s.question_id]
+        is_dummy[g] = s.is_dummy_agent
+        npair = s.pair_start_local.shape[0]
+        if p_off + npair > P:
+            raise ValueError(f"pair bucket overflow: {p_off + npair} > {P}")
+        sl = slice(p_off, p_off + npair)
+        pair_batch[sl] = g
+        pair_start[sl] = s.pair_start_local
+        pair_answer[sl] = s.pair_answer_local
+        pair_len[sl] = s.pair_shortest_len
+        pair_mask[sl] = True
+        n_off += nn
+        e_off += ne
+        p_off += npair
+
+    t = lambda a: _tensor(a, pin)  # noqa: E731
+    return AgentBatch(
+        graph=GraphBatch(**{k: t(v) for k, v in graph.items()}),
+        edge_scores=t(edge_scores),
+        edge_relations=t(edge_relations),
+        node_emb=t(node_emb),
+        node_is_nontext=t(node_is_nontext),
+        edge_emb=t(edge_emb),
+        question_emb=t(q_emb),
+        node_is_start=t(node_is_start),
+        node_is_answer=t(node_is_answer),
+        is_dummy=t(is_dummy),
+        edge_labels=t(edge_labels),
+        pairs=PairSupervision(
+            pair_batch=t(pair_batch),
+            pair_start_local=t(pair_start),
+            pair_answer_local=t(pair_answer),
+            pair_shortest_len=t(pair_len),
+            pair_mask=t(pair_mask),
+        ),
+        node_rows=t(node_rows),
+        edge_rows=t(edge_rows),
+    )
+
+
+def fixed_agent_bucket(samples: Sequence[AgentSample], batch_size: int) -> Bucket:
+    return Bucket.for_batch(
+        batch_size,
+        _worst_batch_sum([s.num_nodes for s in samples], batch_size),
+        _worst_batch_sum([s.num_edges for s in samples], batch_size),
+        _worst_batch_sum([s.pair_start_local.shape[0] for s in samples], batch_size),
+    )
 
 
 def collate_stacked(

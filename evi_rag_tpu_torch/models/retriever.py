@@ -62,18 +62,21 @@ class RetrieverOutput:
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense``: ``kernel [in, out]``, ``bias [out]``.  With a
-    ``dtype`` every operand is cast to it; without one they promote."""
+    """flax ``nn.Dense``: ``kernel [in, out]``, ``bias [out]`` (none with
+    ``use_bias=False``).  With a ``dtype`` every operand is cast to it;
+    without one they promote."""
 
-    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype | None = None):
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype | None = None,
+                 use_bias: bool = True):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(in_features, out_features))
-        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features)) if use_bias else None
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype if self.dtype is not None else torch.promote_types(x.dtype, self.kernel.dtype)
-        return torch.matmul(x.to(dt), self.kernel.to(dt)) + self.bias.to(dt)
+        y = torch.matmul(x.to(dt), self.kernel.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 class SplitInputDense(nn.Module):

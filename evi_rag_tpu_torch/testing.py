@@ -10,6 +10,10 @@ takes D % 64 == 0, and ``serve`` runs the trained checkpoint through it.
 Training must raise the validation split's ``edge/recall@5`` over the
 untrained parameters' by more than ``SMALL_TRAIN_MIN_GAIN``.
 
+``card_vs_cpu_step`` / ``gfn_card_vs_cpu_step`` run one f32 train step of
+the retriever / the GFlowNet on the card and on the CPU from the same
+parameters, batch and draws.
+
 ``pqt_digest`` runs ``per_question_topk`` on a fixed input made with numpy
 from seeds and hashes its output; ``PQT_DIGEST`` pins that hash for the
 wgmma kernel (``csrc/twin_wgmma.cuh``, ``wg_kernel<kQuestion>``), so a match
@@ -161,3 +165,94 @@ def bf16_card_step(dim: int = 1024, questions: int = 4, seed: int = 0) -> dict:
     finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
     norm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values())))
     return {"loss": loss.item(), "grad_norm": norm, "grads_finite": finite}
+
+
+def random_bundle(dim: int, seed: int = 0) -> dict:
+    """A retriever feature bundle (numpy) of flax-initialised parameters."""
+    from evi_rag_tpu_torch.models.retriever import init_parameters, params_to_numpy
+    from evi_rag_tpu_torch.train.checkpoint import export_retriever_features
+
+    model = Retriever(emb_dim=dim, hidden_dim=dim)
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    return export_retriever_features(params_to_numpy(model)["params"], model.parity_meta())
+
+
+def agent_inputs(dim: int, questions: int, seed: int = 0):
+    """A dense agent batch of ``questions`` graphs from the realistic
+    generator at width ``dim`` (random retriever scores, top 64 edges)."""
+    from evi_rag_tpu_torch.data.feeder import collate_agent, fixed_agent_bucket
+    from evi_rag_tpu_torch.data.g_agent import AgentSettings, build_agent_sample
+
+    ds = make_synthetic_dataset(num_samples=2 * questions, emb_dim=dim, num_relations=64, num_entities=4096,
+                                min_nodes=32, max_nodes=128, avg_extra_edges=3.0, seed=seed)
+    rng = np.random.default_rng(seed)
+    samples = []
+    for s in ds.samples:
+        scores = (rng.normal(size=s.edge_index.shape[1]) + 2.0 * s.edge_labels).astype(np.float32)
+        a = build_agent_sample(
+            sample_id=s.sample_id, question_id=s.question_id, heads=s.edge_index[0], tails=s.edge_index[1],
+            relations=s.edge_relations, labels=s.edge_labels.astype(np.float32), scores=scores,
+            node_entity_ids=np.arange(s.num_nodes), node_embedding_ids=s.node_embedding_ids,
+            start_entity_ids=s.topic_locals, answer_entity_ids=s.answer_locals,
+            settings=AgentSettings(edge_top_k=64))
+        if a is not None:
+            samples.append(a)
+    samples = samples[:questions]
+    return collate_agent(samples, entity_emb=ds.entity_emb, relation_emb=ds.relation_emb,
+                         question_emb=ds.question_emb, bucket=fixed_agent_bucket(samples, questions))
+
+
+def gfn_card_vs_cpu_step(hidden: int = 64, questions: int = 4, seed: int = 0,
+                         devices: tuple[str, str] = ("cpu", "cuda")) -> dict:
+    """One f32 GFlowNet train step (4 rollouts, BC on, dropout 0; the caller
+    turns TF32 off) from the same parameters, batch and Gumbel uniforms on
+    the card and on the CPU.  The initial parameters get seeded noise on
+    every leaf (scale 0.3): at init the zero-initialised heads tie every
+    edge logit and leave the gradients behind them at exactly 0.  Returns
+    the loss's relative difference, the worst gradient leaf's
+    ``max(|g_card - g_cpu| / (1e-5 + 1e-3 |g_cpu|))``, the leaves whose
+    reference gradient is all zero (``zero_grad_leaves``, empty when every
+    leaf is exercised), the smallest leaf's ``max |g_cpu|`` and the largest
+    parameter difference after AdamW (lr 1e-4) applies the CPU's gradients
+    on both devices (``devices``: the reference first)."""
+    from evi_rag_tpu_torch.models.batches import replicate_agent_batch
+    from evi_rag_tpu_torch.models.gflownet.actor import make_rollout_draws
+    from evi_rag_tpu_torch.train import gflownet_trainer as gt
+
+    batch = agent_inputs(hidden, questions, seed)
+    cfg = gt.GFlowNetConfig(hidden_dim=hidden, max_steps=3, num_train_rollouts=4, bc_weight=0.5, dropout=0.0,
+                            optimizer=OptimizerConfig(name="adamw", learning_rate=1e-4))
+    draws = make_rollout_draws(cfg.actor, replicate_agent_batch(batch, cfg.num_train_rollouts), hidden_dim=hidden,
+                               dropout=0.0, train=True, sample=True, generator=torch.Generator().manual_seed(seed))
+    bundle = random_bundle(hidden, seed)
+    runs = []
+    for dev in devices:
+        d = torch.device(dev)
+        modules = gt.build_modules(cfg)
+        params = gt.init_gflownet_params(cfg, modules, seed=seed, device=d)
+        noise = torch.Generator().manual_seed(seed + 7)
+        with torch.no_grad():
+            for _, p in modules.named_parameters():
+                p.add_(0.3 * torch.randn(p.shape, generator=noise).to(d))
+        tx = gt.setup_optimizer(cfg.optimizer, flatten_tree(params))
+        loss, _ = gt.rollout_losses(modules, gt.bundle_on(bundle, d), batch_to(batch, d), cfg,
+                                    num_rollouts=cfg.num_train_rollouts, bc_weight=0.5, temperature=1.0, train=True,
+                                    draws={k: v.to(d) for k, v in draws.items()})
+        loss.backward()
+        grads = {gt.gflownet_path(n): p.grad.detach().clone() for n, p in modules.named_parameters()}
+        runs.append((dev, params, tx, loss.item(), grads))
+    cpu_grads = runs[0][4]
+    grad_ratio = max(
+        float(((runs[1][4][k].cpu() - g).abs() / (1e-5 + 1e-3 * g.abs())).max()) for k, g in cpu_grads.items())
+    grad_max = {k: float(g.abs().max()) for k, g in cpu_grads.items()}
+    after = []
+    for dev, params, tx, _, _ in runs:
+        flat = flatten_tree(params)
+        updates, _ = tx.update({k: g.to(dev) for k, g in cpu_grads.items()}, tx.init(flat), flat)
+        after.append({k: (flat[k].detach() + updates[k]).cpu() for k in flat})
+    param_diff = max(float((after[1][k] - v).abs().max()) for k, v in after[0].items())
+    loss_cpu, loss_card = runs[0][3], runs[1][3]
+    return {"loss_cpu": loss_cpu, "loss_card": loss_card, "loss_rel": abs(loss_card - loss_cpu) / abs(loss_cpu),
+            "grad_ratio": grad_ratio, "zero_grad_leaves": sorted(k for k, v in grad_max.items() if v == 0.0),
+            "min_leaf_grad": min(grad_max.values()), "param_diff": param_diff,
+            "edges": int(batch.graph.edge_mask.sum())}

@@ -111,3 +111,45 @@ def test_training_entry_points_raise_without_gpu(monkeypatch, tmp_path):
         create_train_state(model, None, RetrieverTrainConfig())
     with pytest.raises(NotImplementedError, match="data-parallel"):
         fit(model, RetrieverTrainConfig(), lambda epoch: iter([None]), lambda: iter(()), mesh=object())
+
+
+def test_gflownet_entry_points_raise_without_gpu(monkeypatch, tmp_path):
+    """``eval_retriever``, ``train_gflownet``, ``eval_gflownet``,
+    ``fit_gflownet`` and ``init_gflownet_params`` run on the card unless
+    the CPU is named."""
+    from evi_rag_tpu_torch import cli
+    from evi_rag_tpu_torch.train.gflownet_trainer import GFlowNetConfig, build_modules, fit_gflownet, init_gflownet_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for task in (cli.task_eval_retriever, cli.task_train_gflownet, cli.task_eval_gflownet):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            task.__wrapped__({}, run_dir=tmp_path)
+    cfg = GFlowNetConfig(hidden_dim=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fit_gflownet(cfg, {"features": {}, "parity_meta": {}}, lambda epoch: iter([None]), lambda: iter(()))
+    modules = build_modules(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_gflownet_params(cfg, modules)
+    assert init_gflownet_params(cfg, modules, device="cpu")["policy"]["params"]["attn_q"]["kernel"].shape == (8, 8)
+
+
+@pytest.mark.parametrize("knob", ["sample_then_score", "remat_dots", "stacked"])
+def test_unported_gflownet_knobs_raise(knob):
+    """The two-pass rollout, the 'dots' remat policy and stacked
+    (data-parallel) agent batches are not ported: they raise."""
+    import dataclasses
+
+    from evi_rag_tpu_torch.models.batches import AgentBatch
+    from evi_rag_tpu_torch.train.gflownet_trainer import GFlowNetConfig, build_modules, rollout_losses
+
+    cfg = GFlowNetConfig(hidden_dim=8)
+    if knob == "stacked":
+        fields = {f.name: None for f in dataclasses.fields(AgentBatch)}
+        batch = AgentBatch(**{**fields, "question_emb": torch.zeros(2, 3, 8)})
+        with pytest.raises(NotImplementedError, match="stacked"):
+            rollout_losses(build_modules(cfg), {}, batch, cfg, num_rollouts=1, bc_weight=0.0, temperature=1.0)
+        return
+    cfg = dataclasses.replace(cfg, **({"sample_then_score": True} if knob == "sample_then_score"
+                                      else {"remat_policy": "dots"}))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_modules(cfg)

@@ -9,11 +9,14 @@ and the ``train_retriever`` task.
 * Both ``fit``s start from one set of numpy parameters, saved by each
   package's ``save_checkpoint`` and read back through ``resume_from``, and
   run 2 epochs of the small synthetic setting: per-epoch train loss within
-  rtol 1e-3, per-graph validation metrics within one graph's share.
+  rtol 1e-3, per-graph validation metrics within one graph's share, the
+  best parameters leaf by leaf within the drift that the one-step gradient
+  bound allows over the run's 6 steps (``_fit_param_tol``).
 * Checkpoints keep ``opt_state`` / ``step`` / ``has_opt_state`` and the JAX
   digest; resuming restores the optimizer state.
-* ``train_retriever`` runs on the CPU (``device=cpu``) end to end, writes
-  what the JAX task writes, and ``serve`` loads its ``ckpt/best``.
+* ``train_retriever`` runs on the CPU (``device=cpu``) end to end from the
+  checkpoint the JAX task resumes from too; both ``metrics.json`` agree by
+  value, and ``serve`` loads its ``ckpt/best``.
 """
 
 import json
@@ -45,6 +48,11 @@ from _torch_train_common import datasets, grads_tree_to_flat, init_both, models
 CONFIGS = str(pathlib.Path(__file__).resolve().parents[1] / "configs")
 BUCKET = jfeed.Bucket(graphs=9, nodes=256, edges=1024)
 GRAD_TOL = dict(rtol=1e-3, atol=1e-5)
+# InfoNCE over each graph's edges is invariant to one shift of all its
+# logits, and these two leaves only shift all logits: their true gradient is
+# 0, and what each package computes for it is rounding noise
+# (``test_train_step_gradients_match_jax`` holds both at or below 1e-5).
+SHIFT_ONLY = ("params/score_head/bias", "params/state_net_1/bias")
 
 
 def _stacked(jds, tds, n=16, shards=2):
@@ -77,6 +85,8 @@ def test_train_step_gradients_match_jax():
         assert set(tg) == set(jg)
         for path, g in tg.items():
             np.testing.assert_allclose(g.numpy(), jg[path], err_msg=path, **GRAD_TOL)
+        for path in SHIFT_ONLY:
+            assert np.abs(jg[path]).max() <= 1e-5 and np.abs(tg[path].numpy()).max() <= 1e-5, path
         assert {"infonce", "pos_prob", "infonce_graphs"} <= set(metrics)
 
 
@@ -135,6 +145,26 @@ def test_fit_matches_jax_from_one_checkpoint(tmp_path):
     jflat = grads_tree_to_flat(jax.tree.map(np.asarray, jbest))
     tflat = {k: v.numpy() for k, v in tck.flatten_tree(tbest).items()}
     assert set(tflat) == set(jflat)
+    for path, want in jflat.items():
+        np.testing.assert_allclose(tflat[path], want, rtol=0, atol=_fit_param_tol(path, lr=3e-3, steps=6),
+                                   err_msg=path)
+
+
+def _fit_param_tol(path: str, *, lr: float, steps: int) -> float:
+    """How far the two packages' parameters may drift apart over ``steps``
+    AdamW steps at learning rate ``lr``, from the one-step gradient bound
+    of ``test_train_step_gradients_match_jax`` (atol 1e-5 + rtol 1e-3).
+
+    A step moves a leaf by ``lr * m / (sqrt(v) + eps)``, a ratio that does
+    not depend on the gradient's scale; a gradient known to rtol 1e-3 moves
+    the ratio by at most 2e-3 of its size (numerator and denominator each
+    off by 1e-3), i.e. by at most ``2e-3 * lr`` a step, and the differences
+    of the steps add up: ``steps * 2e-3 * lr`` (3.6e-5 at lr 3e-3 over 6
+    steps).  The atol term leaves a gradient at or below 1e-5 unresolved:
+    its sign may differ, and AdamW turns noise into a step of up to ``lr``
+    in either direction.  That is the case of the ``SHIFT_ONLY`` leaves,
+    whose true gradient is 0: ``steps * 2 * lr``."""
+    return steps * 2.0 * lr if path in SHIFT_ONLY else steps * 2e-3 * lr
 
 
 def test_checkpoint_keeps_optimizer_state_and_resume_restores_it(tmp_path):
@@ -175,26 +205,84 @@ COMMON = ["dataset.num_samples=8", "dataset.emb_dim=32", "dataset.max_nodes=12",
           "retriever.train.monitor=edge/recall@5", "retriever.model.hide_seek.enabled=false"]
 
 
+def _start_checkpoint(tmp):
+    """One set of parameters at the COMMON width, saved by both packages."""
+    cfg = jcli.load_config(CONFIGS, "train_retriever", COMMON)
+    samples, ent, rel, q = jcli._load_split(cfg, "train")
+    batch = jfeed.collate_retriever(samples[:4], entity_emb=ent, relation_emb=rel, question_emb=q,
+                                    bucket=jfeed.fixed_bucket_for(samples, 4))
+    model = jcli._retriever_model(cfg, inferred_dim=ent.shape[1])
+    params = jax.tree.map(np.asarray, model.init(jax.random.key(1), batch))
+    meta = {"parity_meta": model.parity_meta()}
+    jck.save_checkpoint(tmp / "jax_start", params, meta=meta)
+    tck.save_checkpoint(tmp / "port_start", params, meta=meta)
+    return params
+
+
+# Validation metrics that are mean sigmoid probabilities, and differences of two.
+PROBS = ("bridge/pos_prob", "bridge/neg_prob", "features/pos_prob_avg", "features/neg_prob_avg")
+PROB_GAPS = ("bridge/separation", "features/separation_gap")
+
+
+def _prob_tol(params, *, lr: float, steps: int) -> float:
+    """How far a mean sigmoid probability may differ between the packages
+    after ``steps`` AdamW steps from ``params``, through the ``SHIFT_ONLY``
+    leaves (``_fit_param_tol``: up to ``2 lr`` apart a step, per
+    component).  ``score_head/bias`` shifts every logit by its own drift,
+    ``state_net_1/bias`` by its drift times ``score_head/kernel``; so the
+    logits shift by at most ``2 lr (1 + |w|_1)`` a step, ``w`` the head's
+    kernel (which itself moves by at most ``lr`` a component and step), and
+    a sigmoid moves by at most a quarter of that."""
+    w1 = float(np.abs(params["params"]["score_head"]["kernel"]).sum())
+    w1 += steps * lr * params["params"]["score_head"]["kernel"].size
+    return steps * 2.0 * lr * (1.0 + w1) / 4.0
+
+
 def test_train_retriever_task_on_cpu_then_serve(tmp_path):
-    assert tcli.main(["train_retriever", "--configs-dir", CONFIGS, *COMMON, "device=cpu",
-                      f"retriever.train.ckpt_dir={tmp_path / 'ckpt'}", f"paths.log_dir={tmp_path / 'logs'}"]) == 0
-    (tmetrics,) = (tmp_path / "logs").glob("**/metrics.json")
-    tm = json.loads(tmetrics.read_text())
-    assert (tmetrics.parent / "metrics.jsonl").exists()
-    best, best_meta = tck.load_checkpoint(tmp_path / "ckpt" / "best")
-    _, last_meta = tck.load_checkpoint(tmp_path / "ckpt" / "last")
+    """Both CLIs resume from one checkpoint (dropout 0, hide-and-seek off)
+    and take one step (8 graphs, batch 8): the train loss of each epoch
+    within rtol 1e-3, the validation recall and reachability within one
+    validation graph's share, the mean sigmoid probabilities and their
+    differences within rtol 1e-3 + ``_prob_tol``, every other validation
+    metric within rtol 1e-3."""
+    start = _start_checkpoint(tmp_path)
+    runs = {}
+    for name, lib, extra in (("port", tcli, ["device=cpu"]), ("jax", jcli, [])):
+        assert lib.main(["train_retriever", "--configs-dir", CONFIGS, *COMMON, *extra,
+                         "retriever.model.dropout_p=0.0", f"retriever.train.resume_from={tmp_path / f'{name}_start'}",
+                         f"retriever.train.ckpt_dir={tmp_path / f'{name}_ckpt'}",
+                         f"paths.log_dir={tmp_path / f'{name}_logs'}"]) == 0
+        (metrics_file,) = (tmp_path / f"{name}_logs").glob("**/metrics.json")
+        runs[name] = (json.loads(metrics_file.read_text()),
+                      [json.loads(x) for x in (metrics_file.parent / "metrics.jsonl").read_text().splitlines()])
+    (tm, tlog), (jm, jlog) = runs["port"], runs["jax"]
+    assert tm.keys() == jm.keys()
+    share, lr = 1.0 / 8, 1e-3  # 8 validation graphs; configs/retriever/default.yaml's learning rate
+    prob_tol = _prob_tol(start, lr=lr, steps=1)
+    for k, v in jm.items():
+        if k == "best_ckpt_sha256":
+            continue
+        if k.startswith(("edge/recall", "answer/reach", "bridge/recall", "edge/margin_positive_rate")):
+            assert abs(tm[k] - v) <= share + 1e-9, (k, tm[k], v)
+        elif k in PROBS:
+            assert tm[k] == pytest.approx(v, rel=1e-3, abs=prob_tol), k
+        elif k in PROB_GAPS:
+            assert tm[k] == pytest.approx(v, rel=1e-3, abs=2 * prob_tol), k
+        else:
+            assert tm[k] == pytest.approx(v, rel=1e-3), k
+    assert len(tlog) == len(jlog) == tm["epochs"]
+    for t_row, j_row in zip(tlog, jlog):
+        assert t_row["train_loss"] == pytest.approx(j_row["train_loss"], rel=1e-3)
+
+    best, best_meta = tck.load_checkpoint(tmp_path / "port_ckpt" / "best")
+    _, last_meta = tck.load_checkpoint(tmp_path / "port_ckpt" / "last")
     assert tm["best_ckpt_sha256"] == best_meta["params_sha256"] and last_meta["has_opt_state"]
     assert jck.params_digest(best["params"]) == best_meta["params_sha256"]
-
-    assert jcli.main(["train_retriever", "--configs-dir", CONFIGS, *COMMON,
-                      f"retriever.train.ckpt_dir={tmp_path / 'jckpt'}", f"paths.log_dir={tmp_path / 'jlogs'}"]) == 0
-    (jmetrics,) = (tmp_path / "jlogs").glob("**/metrics.json")
-    assert set(tm) == set(json.loads(jmetrics.read_text()))
-    assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == ["best", "last"]
+    assert sorted(p.name for p in (tmp_path / "port_ckpt").iterdir()) == ["best", "last"]
 
     assert tcli.main(["serve", "--configs-dir", CONFIGS, "dataset.num_samples=8", "dataset.emb_dim=32",
                       "dataset.max_nodes=12", "serve.splits=[validation]", "serve.k=10", "serve.k_values=[1,10]",
-                      "device=cpu", f"retriever.ckpt={tmp_path / 'ckpt' / 'best'}",
+                      "device=cpu", f"retriever.ckpt={tmp_path / 'port_ckpt' / 'best'}",
                       f"paths.log_dir={tmp_path / 'serve_logs'}"]) == 0
     (smetrics,) = (tmp_path / "serve_logs").glob("**/metrics.json")
     assert 0.0 <= json.loads(smetrics.read_text())["validation/serve/recall@10"] <= 1.0
