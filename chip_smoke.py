@@ -72,7 +72,23 @@ Phases, each printed as it runs:
    gradient non-zero) on the card held to the CPU
    (``testing.gfn_card_vs_cpu_step``).  8e: ``train_retriever ->
    eval_retriever -> train_gflownet -> eval_gflownet`` through the CLI at the
-   small setting, then 6 steps on one fixed batch must lower the loss.
+   small setting, then 6 steps on one fixed batch must lower the loss;
+   ``bfs_chains`` runs in that chain after ``eval_retriever`` (9e);
+9. the data build (no kernel lies on it: the gte GEMMs and attention are
+   library calls).  9a: ``csrc/graphcore.cpp`` built with g++ and held to
+   the numpy BFS engine on random graphs in both path modes.  9b: gte-large
+   at its published geometry (24 layers, hidden 1024, 16 heads, gated MLP
+   4096, vocab 30,528) with seeded random weights, card (f32, TF32 off)
+   against CPU on 8 ragged rows of 64 tokens: pooled min cosine >= 0.99999
+   and max abs error <= 1e-4 x max |x|.  9c: the WebQSP preset's 246-question
+   validation split (``testing.synthetic_rows``, seed 0) through the build's
+   passes 1-4 with that encoder (``testing.HashTokenizer``, 64 tokens, batch
+   256) and the native engine: texts, real and padded tokens, encode s,
+   texts/s, TFLOP/s as counted and the share of the f32 bound, one batch
+   timed alone, the graph pass s and the engine that ran, bytes, peak
+   memory.  9d: ``seed_stats`` through the CLI on the built split, and
+   ``serve`` of it with phase 7a's retriever through kernel 3, held to the
+   plain-version serve by phase 4's rule (q/s, bucket shapes).
 
 ``python3 chip_smoke.py --ablation [M]`` runs only an ablation of the three
 wgmma kernels instead: each source built again with a switch of
@@ -136,6 +152,20 @@ GFN_WORK = GFN_DIR / "work"           # stores, artifacts and checkpoints, remov
 GFN_BATCH = 8              # configs/experiment/train_gflownet.yaml batch_size
 GFN_ROLLOUTS = 4           # num_train_rollouts
 GFN_EVAL_ROLLOUTS = 10     # configs/gflownet/default.yaml eval_rollouts
+# Phase 9: gte-large-en-v1.5's published geometry (GTEConfig's defaults), the
+# JAX build's padded encode shape, and the WebQSP preset's validation split.
+GTE = dict(vocab_size=30528, hidden_size=1024, num_hidden_layers=24, num_attention_heads=16,
+           intermediate_size=4096, type_vocab_size=2, rope_theta=160000.0, layer_norm_eps=1e-12, hidden_act="gelu")
+GTE_LEN, GTE_BATCH = 64, 256
+# Matrix FLOP per padded token: per layer 2 x 16,777,216 for the qkv, o,
+# up_gate and down GEMMs and 4 T D for the scores and the weighted sum.
+GTE_FLOP_PER_TOKEN = 24 * (2 * 16_777_216 + 4 * GTE_LEN * 1024)
+GTE_COS_MIN = 0.99999      # 9b: card vs CPU, pooled f32 outputs
+GTE_REL_ERR = 1e-4         # 9b: max abs error <= this x max |x|
+BUILD_QUESTIONS = 246      # the WebQSP preset's validation split
+BUILD_DIR = OUT_DIR / "chip_smoke_build"  # phase 9: logs stay
+BUILD_WORK = BUILD_DIR / "work"           # the built dataset, removed when phase 9 ends
+BUILT_RANK = 8192          # >= the largest bucket of the built split (edge cap 6144)
 
 
 def log(msg: str) -> None:
@@ -451,21 +481,21 @@ def phase_serve(bundle_np, num_questions: int):
     return out
 
 
-def plain_full_ranking(bundle, q_emb, head_repr, *args, k, weights):
+def plain_full_ranking(bundle, q_emb, head_repr, *args, k, weights, width: int = FULL_RANK):
     """The plain version, ranking every candidate instead of the top k
-    (padded with -inf to ``FULL_RANK`` slots, so that every bucket shape
-    returns the same width); ``serve_split`` then keeps each question's whole
+    (padded with -inf to ``width`` slots, so that every bucket shape returns
+    the same width); ``serve_split`` then keeps each question's whole
     ranking with its scores."""
     import torch.nn.functional as F
 
     from evi_rag_tpu_torch.ops import score_kernels as sk
 
     m = head_repr.shape[1]
-    if m > FULL_RANK:
-        raise ValueError(f"bucket M={m} > FULL_RANK={FULL_RANK}")
+    if m > width:
+        raise ValueError(f"bucket M={m} > width {width}")
     vals, ids = sk.per_question_topk_reference(bundle, q_emb, head_repr, *args, k=m, weights=weights)
-    return (F.pad(vals, (0, FULL_RANK - m), value=float("-inf")),
-            F.pad(ids, (0, FULL_RANK - m), value=-1))
+    return (F.pad(vals, (0, width - m), value=float("-inf")),
+            F.pad(ids, (0, width - m), value=-1))
 
 
 def check_against_plain(samples, results, full):
@@ -1227,6 +1257,9 @@ def phase_gflownet_chain(configs: str):
          [art / "g_agent" / "validation" / "manifest.json", art / "eval_retriever" / "validation.manifest.json"]),
         ("eval_retriever", [f"retriever.ckpt={ck / 'r' / 'best'}", "eval.splits=[train]", "eval.g_agent.edge_top_k=50"],
          [art / "g_agent" / "train" / "manifest.json", art / "eval_retriever" / "train.manifest.json"]),
+        # 9e: the BFS chain baseline over the validation agent store.
+        ("bfs_chains", ["eval.splits=[validation]"], [art / "eval_bfs" / "validation.manifest.json",
+                                                      art / "eval_bfs" / "validation.jsonl"]),
         ("train_gflownet", [f"retriever.ckpt={ck / 'r' / 'best'}", f"gflownet.ckpt_dir={ck / 'g'}"],
          [ck / "g" / "best" / "meta.json"]),
         ("eval_gflownet", [f"gflownet.ckpt={ck / 'g' / 'best'}", "eval.splits=[validation]"],
@@ -1260,11 +1293,292 @@ def phase_gflownet_chain(configs: str):
         losses.append(float(m["loss"]))
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"8e: the GFlowNet loss on one fixed batch did not fall: {losses}")
+    bfs = next(r for r in rows if r["task"] == "bfs_chains")
+    log(f"[9e bfs_chains] in the chain after eval_retriever: exit 0 in {bfs['seconds']:.1f} s, "
+        f"{bfs['metrics']['validation/num_samples']} samples, eval_bfs/validation.jsonl and its manifest written")
     hit = rows[-1]["metrics"]["validation/answer_hit@1"]
     log(f"[8e cli chain] " + ", ".join(f"{r['task']} {r['seconds']:.1f} s" for r in rows)
         + f" (exit 0, manifests written); eval_gflownet answer_hit@1 {hit:.4f}; 6 steps on one fixed batch: loss "
         + " -> ".join(f"{x:.4f}" for x in losses))
     return dict(stages=rows, losses=losses)
+
+
+def phase_native():
+    """9a: ``csrc/graphcore.cpp`` built with g++ here and held to the numpy
+    engine on the random graphs of ``tests/test_native_graphcore.py``, in
+    both path modes (mask, pairs, on-path edge ids in order, counts,
+    lengths), and its BFS distances to numpy's."""
+    import numpy as np
+
+    from evi_rag_tpu_torch.data import bfs_label, native
+    from evi_rag_tpu_torch.ops import _build
+
+    found = _build.host_library_path(native.SOURCE).exists()
+    t0 = time.perf_counter()
+    if native.load_library() is None:
+        raise AssertionError(f"g++ could not build csrc/graphcore.cpp: {_build.BUILD_LOG.get(native.SOURCE)}")
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(42)
+    cases = 0
+    for mode in ("undirected", "qa_directed"):
+        for _ in range(12):
+            n, e = 40, 120
+            src, dst = rng.integers(0, n, size=e), rng.integers(0, n, size=e)
+            src[rng.random(e) < 0.02] = -1
+            dst[rng.random(e) < 0.02] = n + 5
+            case = dict(num_nodes=n, edge_src=src, edge_dst=dst, sources=rng.integers(0, n, size=2),
+                        targets=rng.integers(0, n, size=3))
+            want = bfs_label.shortest_path_union_by_pair(path_mode=mode, **case)
+            got = native.shortest_path_union_by_pair_native(path_mode=mode, **case)
+            if not (np.array_equal(got[0], want[0]) and list(got[1:]) == list(want[1:])):
+                raise AssertionError(f"native BFS engine differs from numpy ({mode}): {got} vs {want}")
+            seeds = case["sources"]
+            if not np.array_equal(native.bfs_dist(n, src, dst, seeds, undirected=mode == "undirected"),
+                                  bfs_label.bfs_dist(n, *bfs_label.build_csr(n, src, dst, undirected=mode == "undirected"),
+                                                     seeds)):
+                raise AssertionError(f"native bfs_dist differs from numpy ({mode})")
+            cases += 1
+    how = "found built" if found else f"built with g++ in {build_s:.2f} s"
+    log(f"[9a native] graphcore {how}; {cases} random graphs (both path modes) equal to the numpy engine, "
+        f"edge ids in order, and BFS distances equal")
+    return dict(build_s=None if found else build_s, cases=cases)
+
+
+def gte_probe():
+    """8 rows of 64 token ids: [CLS] ids [SEP] with ragged lengths, the
+    last row [CLS] [SEP] only, the rest padding."""
+    import numpy as np
+
+    rng = np.random.default_rng(29)
+    ids = np.zeros((8, GTE_LEN), np.int64)
+    mask = np.zeros((8, GTE_LEN), np.int64)
+    for row, n in enumerate((64, 50, 33, 17, 9, 5, 3, 2)):
+        ids[row, :n] = rng.integers(5, GTE["vocab_size"], size=n)
+        ids[row, 0], ids[row, n - 1] = 2, 3
+        mask[row, :n] = 1
+    return ids, mask
+
+
+def phase_gte():
+    """9b: gte-large at its published geometry with seeded random weights,
+    on the card (TF32 off) against the CPU on ``gte_probe``'s rows: the
+    pooled f32 outputs' min cosine and max abs error.  Returns the card's
+    model for 9c."""
+    import numpy as np
+    import torch
+
+    from evi_rag_tpu_torch.data.gte import GTEConfig, GTEModel, mean_pool
+    from evi_rag_tpu_torch.testing import random_gte_state
+
+    cfg = GTEConfig(**GTE)
+    t0 = time.perf_counter()
+    state = random_gte_state(cfg, seed=23)
+    params = sum(v.numel() for v in state.values())
+    made_s = time.perf_counter() - t0
+    card = GTEModel.from_state_dict(state, cfg, device="cuda")
+    cpu = GTEModel.from_state_dict(state, cfg, device="cpu")  # shares the state's memory
+    del state
+    ids, mask = gte_probe()
+    out = {}
+    for name, model in (("cpu", cpu), ("cuda", card)):
+        dev = torch.device(name)
+        with torch.inference_mode():
+            i, m = torch.as_tensor(ids, device=dev), torch.as_tensor(mask, device=dev)
+            t = time.perf_counter()
+            out[name] = mean_pool(model(i, m), m).cpu().numpy()
+            out[f"{name}_s"] = time.perf_counter() - t
+    del cpu
+    a, b = out["cpu"].astype(np.float64), out["cuda"].astype(np.float64)
+    cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+    err, scale = float(np.abs(a - b).max()), float(np.abs(a).max())
+    finite = bool(np.isfinite(b).all())
+    log(f"[9b gte] gte-large geometry ({cfg.num_hidden_layers} layers, hidden {cfg.hidden_size}, "
+        f"{cfg.num_attention_heads} heads, gated MLP {cfg.intermediate_size}, vocab {cfg.vocab_size}), "
+        f"{params / 1e6:.1f} M parameters made from seed 23 in {made_s:.1f} s; 8 rows x {GTE_LEN} tokens "
+        f"(real {mask.sum(1).tolist()}): card vs CPU min cosine {cos.min():.8f} (bar {GTE_COS_MIN}), max abs error "
+        f"{err:.3e} = {err / scale:.3e} x max |x| {scale:.4f} (bar {GTE_REL_ERR}); CPU forward {out['cpu_s']:.2f} s")
+    if not finite or cos.min() < GTE_COS_MIN or err > GTE_REL_ERR * scale:
+        raise AssertionError(f"9b: gte on the card differs from the CPU: min cosine {cos.min()}, max abs error {err}")
+    return card, dict(params=params, min_cos=float(cos.min()), max_abs_err=err, max_abs=scale,
+                      rel_err=err / scale, cpu_s=out["cpu_s"])
+
+
+def phase_build_data(smi: str, retriever_ckpt: str):
+    """9b-9d: gte on the card against the CPU, the build of the WebQSP
+    preset's validation split with the full-width gte encoder, then
+    ``seed_stats`` and ``serve`` (kernel 3) on the built split."""
+    model, gte = phase_gte()
+    out = {"nvidia_smi": smi, "gte": gte}
+    out.update(phase_build_split(model, smi))
+    del model
+    out.update(phase_built_serve(retriever_ckpt))
+    shutil.rmtree(BUILD_WORK)  # ~200 MB of embeddings and stores
+    return out
+
+
+def phase_build_split(model, smi: str):
+    """9c: the WebQSP preset's validation split (seed 0; pool 120,000
+    entities, 600 relations, log-normal edges, cap 6,144) through the port's
+    build passes 1-4 with the full-width gte encoder (stand-in tokenizer,
+    max_length 64, batch 256) and the native BFS engine."""
+    import numpy as np
+    import torch
+
+    from evi_rag_tpu_torch.data import native
+    from evi_rag_tpu_torch.data.gte import GTETextEncoder
+    from evi_rag_tpu_torch.data.pipeline import PipelineConfig, TextEntityPolicy, build_from_samples, read_raw_rows
+    from evi_rag_tpu_torch.testing import HashTokenizer, synthetic_rows
+
+    t0 = time.perf_counter()
+    tables = list(synthetic_rows("webqsp", seed=0, counts={"train": 0, "validation": BUILD_QUESTIONS, "test": 0}))
+    rows = tables[0][1]
+    edges = np.array([len(r["graph"]) for r in rows])
+    log(f"[9c build] WebQSP preset validation split (seed 0): {len(rows)} questions, triples median "
+        f"{int(np.median(edges))} max {edges.max()} total {edges.sum()}, made in {time.perf_counter() - t0:.1f} s")
+    encoder = GTETextEncoder.from_model(model, HashTokenizer(GTE["vocab_size"]), max_length=GTE_LEN)
+    # One timed 256 x 64 batch alone (CUDA events): the model without the host.
+    ids = torch.randint(5, GTE["vocab_size"], (GTE_BATCH, GTE_LEN), device="cuda")
+    mask = torch.ones_like(ids)
+    with torch.inference_mode():
+        batch_ms = cuda_ms(lambda: model(ids, mask), 3)
+        profile = profile_encode(model, ids, mask)
+    cfg = PipelineConfig(dataset="webqsp_synth", raw_root="", out_dir=str(BUILD_WORK / "normalized"),
+                         text_policy=TextEntityPolicy(mode="regex", match_regex=r"^(?!m\.|g\.).*"),
+                         encode_batch_size=GTE_BATCH)
+    native.best_shortest_path_union.runs.update(native=0, numpy=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, _ = build_from_samples(cfg, encoder, read_raw_rows(tables, "webqsp_synth"))
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    engines = dict(native.best_shortest_path_union.runs)
+    if engines["native"] == 0 or engines["numpy"] != 0:
+        raise AssertionError(f"9c: the BFS labels did not all come from the native engine: {engines}")
+    st = encoder.stats
+    flops = st["padded_tokens"] * GTE_FLOP_PER_TOKEN
+    enc_s = res.phase_s["encode_s"]
+    tflops = flops / enc_s / 1e12
+    share = flops / PEAK_F32_FLOPS / enc_s
+    root = pathlib.Path(cfg.out_dir)
+    store_bytes = sum(f.stat().st_size for f in (root / "materialized").rglob("*") if f.is_file())
+    emb_bytes = sum(f.stat().st_size for f in (root / "embeddings").glob("*.npy"))
+    if st["texts"] != sum(res.num_texts.values()):
+        raise AssertionError(f"9c: {st['texts']} texts encoded, {res.num_texts} expected")
+    ent = np.load(root / "embeddings" / "entity_embeddings.npy", mmap_mode="r")
+    if ent.shape != (res.num_text_entities + 1, GTE["hidden_size"]) or not np.isfinite(ent[1:]).all():
+        raise AssertionError(f"9c: entity embeddings {ent.shape} or not finite")
+    batch_tflops = GTE_BATCH * GTE_LEN * GTE_FLOP_PER_TOKEN / batch_ms / 1e9
+    log(f"[9c build] texts encoded {res.num_texts} = {st['texts']} in {st['batches']} batches of {GTE_BATCH} x "
+        f"{GTE_LEN}; tokens real {st['real_tokens']} of {st['padded_tokens']} padded (real share "
+        f"{st['real_tokens'] / st['padded_tokens']:.4f})")
+    log(f"[9c build] encode {enc_s:.2f} s: {st['texts'] / enc_s:.1f} texts/s, {tflops:.2f} TFLOP/s as counted "
+        f"({GTE_FLOP_PER_TOKEN / 1e6:.1f} MFLOP a padded token), {share:.4f} of the f32 bound "
+        f"({PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s, TF32 off); one 256 x 64 batch alone {batch_ms:.2f} ms "
+        f"({batch_tflops:.2f} TFLOP/s, bound {GTE_BATCH * GTE_LEN * GTE_FLOP_PER_TOKEN / PEAK_F32_FLOPS * 1e3:.1f} ms)")
+    log(f"[9c build] graph pass + stores {res.phase_s['graph_s']:.2f} s, BFS engine runs {engines}; "
+        f"{res.counts['kept']} kept, {res.counts['sub']} sub; stores {store_bytes} bytes, embeddings "
+        f"{emb_bytes} bytes; peak device memory {peak / 2**30:.3f} GiB; build wall {wall_s:.1f} s; {smi}")
+    return {"build": dict(num_texts=res.num_texts, stats=dict(st), encode_s=enc_s, texts_per_s=st["texts"] / enc_s,
+                          tflops=tflops, f32_bound_share=share, batch_ms=batch_ms, batch_tflops=batch_tflops,
+                          real_share=st["real_tokens"] / st["padded_tokens"], graph_s=res.phase_s["graph_s"],
+                          engines=engines, counts=res.counts, store_bytes=store_bytes, emb_bytes=emb_bytes,
+                          peak_gib=peak / 2**30, wall_s=wall_s, num_entities=res.num_entities, profile=profile,
+                          num_text_entities=res.num_text_entities)}
+
+
+def profile_encode(model, ids, mask):
+    """Device time by kernel and the busy share of one traced 256 x 64
+    gte batch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        model(ids, mask)  # profiler start-up off the clock
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model(ids, mask)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if dev_us and ev.key and not ev.key.startswith(("cuda", "aten::")):
+            rows.append((ev.key, dev_us / 1e3, ev.count))
+    rows.sort(key=lambda x: -x[1])
+    if not rows:
+        log("[9c profile] device time: not measured (profiler saw no device events)")
+        return None
+    busy = sum(r[1] for r in rows)
+    log(f"[9c profile] one 256 x 64 batch: wall {wall_ms:.1f} ms (profiled), device kernel time {busy:.1f} ms, "
+        f"busy share {busy / wall_ms:.3f}")
+    for name, ms, n in rows[:10]:
+        log(f"[9c profile]   {ms:9.3f} ms  x{n:4d}  {name[:90]}")
+    return dict(wall_ms=wall_ms, device_ms=busy, top=rows[:10])
+
+
+def phase_built_serve(retriever_ckpt: str):
+    """9d: ``seed_stats`` through the CLI on the built split, then ``serve``
+    of it with phase 7a's D = 1024 retriever through kernel 3, held to the
+    plain-version serve by phase 4's rule."""
+    import collections
+    import functools
+
+    import numpy as np
+    import torch
+
+    from evi_rag_tpu_torch import cli
+    from evi_rag_tpu_torch.data.pipeline import load_retrieval_split
+    from evi_rag_tpu_torch.ops import score_kernels as sk
+    from evi_rag_tpu_torch.serving import _pow2_at_least, project_tables, serve_recall_at_k, serve_split
+    from evi_rag_tpu_torch.train.checkpoint import bundle_from_numpy, export_retriever_features, load_checkpoint
+
+    root = BUILD_WORK / "normalized"
+    rc = cli.main(["seed_stats", "--configs-dir", str(ROOT / "configs"), "dataset.source=normalized",
+                   f"dataset.normalized_dir={root}", "eval.splits=[validation]",
+                   f"paths.log_dir={BUILD_DIR / 'logs'}"])
+    stats = latest_metrics(BUILD_DIR / "logs")
+    if rc != 0 or not all(np.isfinite(v) for v in stats.values()) or "validation/onehop_edges/mean" not in stats:
+        raise AssertionError(f"9d seed_stats: rc {rc}, metrics {stats}")
+    log(f"[9d seed_stats] on the built split: " + ", ".join(f"{k.split('/', 1)[1]} {v:.4g}" for k, v in stats.items()))
+
+    samples, q_emb = load_retrieval_split(root, "validation")
+    ent = np.load(root / "embeddings" / "entity_embeddings.npy")
+    rel = np.load(root / "embeddings" / "relation_embeddings.npy")
+    tree, meta = load_checkpoint(retriever_ckpt)
+    exported = export_retriever_features(tree["params"], meta["parity_meta"])
+    bundle = {"features": bundle_from_numpy(exported["features"], device="cuda")}
+    projected = project_tables(bundle, ent, rel, device="cuda")
+    kw = dict(entity_emb=ent, relation_emb=rel, question_emb=q_emb, k=K, num_rounds=2, num_reverse_rounds=2,
+              projected=projected, device="cuda")
+    serve_split(bundle, samples, **kw)  # warm
+    reset_launches()
+    results, st = serve_split(bundle, samples, **kw)
+    launches = sk.per_question_topk.launches
+    if launches == 0:
+        raise AssertionError("9d: serve of the built split never launched kernel 3")
+    order = sorted(samples, key=lambda s: s.edge_index.shape[1])
+    buckets = collections.Counter(
+        max(_pow2_at_least(max(s.edge_index.shape[1] for s in g)), _pow2_at_least(K),
+            _pow2_at_least(max(s.num_nodes for s in g) + 1))
+        for g in (order[i : i + 16] for i in range(0, len(order), 16)))
+    full, _ = serve_split(bundle, samples, fused_fn=functools.partial(plain_full_ranking, width=BUILT_RANK), **kw)
+    plain, swapped, max_err = check_against_plain(samples, results, full)
+    rec_k = serve_recall_at_k(samples, results, [10, 100])
+    rec_p = serve_recall_at_k(samples, plain, [10, 100])
+    slack = swapped / len(samples)
+    for key in rec_k:
+        if abs(rec_k[key] - rec_p[key]) > slack:
+            raise AssertionError(f"9d {key}: kernel {rec_k[key]} vs plain {rec_p[key]} (slack {slack})")
+    edges = np.array([s.edge_index.shape[1] for s in samples])
+    log(f"[9d serve] built split: {len(samples)} questions, edges median {int(np.median(edges))} max {edges.max()}; "
+        f"buckets (M: groups of 16) {dict(sorted(buckets.items()))}; kernel 3 launches {launches} for "
+        f"{st.num_groups} groups; {st.queries_per_s:.2f} q/s (scoring {st.scoring_s:.3f} s); vs plain-version serve: "
+        f"max score error {max_err:.3e}, near-tie swaps {swapped}/{len(samples)}; recall kernel {rec_k} plain {rec_p}")
+    return {"seed_stats": stats, "serve": dict(launches=launches, groups=st.num_groups, qps=st.queries_per_s,
+                                               buckets=dict(buckets), max_abs_err=max_err, swapped=swapped,
+                                               recall=rec_k, recall_plain=rec_p)}
 
 
 def wgmma_ptxas(sources) -> list[str]:
@@ -1458,6 +1772,8 @@ def main() -> int:
     pooled = phase_pooled(bundle_np)
     train = phase_train(smi)
     gflownet = phase_gflownet(smi, train["retriever_ckpt"])
+    native_bfs = phase_native()
+    build = phase_build_data(smi, train["retriever_ckpt"])
 
     rep = next(r for r in rows if r["M"] == REPORT_M)
     kernels = [{
@@ -1469,6 +1785,7 @@ def main() -> int:
         "group_launches": serve["group_launches"],
         "warmup_launches": serve["warmup_launches"],
         "launches_serving_trained_ckpt": train["serve"]["launches"],
+        "launches_serving_built_split": build["serve"]["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": rep["ms"],
         "plain_ms": rep["plain_ms"],
@@ -1501,7 +1818,8 @@ def main() -> int:
             "shape": f"B={POOLED_B} M={POOLED_M} D={D} H={H} S={S} k={K}",
         })
     details = dict(nvidia_smi=smi, build_s=build_s, kernel=rows, serve=serve, cli=cli_metrics,
-                   pooled=pooled, train=train, gflownet=gflownet, kernels=kernels, wall_s=time.perf_counter() - t_all)
+                   pooled=pooled, train=train, gflownet=gflownet, native_bfs=native_bfs, build=build, kernels=kernels,
+                   wall_s=time.perf_counter() - t_all)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(details, indent=2, default=str))
     log(f"[done] wall {details['wall_s']:.1f} s; details in chiprun_out/chip_smoke.json")
     log(json.dumps({"kernels": kernels}))

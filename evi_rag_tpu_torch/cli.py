@@ -1,5 +1,6 @@
-"""Command line of the port: ``train_retriever``, ``eval_retriever``,
-``train_gflownet``, ``eval_gflownet`` and ``serve``.
+"""Command line of the port: ``build``, ``train_retriever``, ``eval_retriever``,
+``train_gflownet``, ``eval_gflownet``, ``bfs_chains``, ``serve`` and
+``seed_stats``.
 
 Usage::
 
@@ -13,12 +14,14 @@ the run dir: ``train_retriever`` writes ``ckpt/best`` and ``ckpt/last``
 ``eval_retriever/<split>.jsonl`` under ``eval.artifacts_dir``;
 ``train_gflownet`` trains on those stores (``gflownet.g_agent_dir``) and
 writes ``ckpt/best`` (``gflownet.ckpt_dir``); ``eval_gflownet`` writes
-``eval_gflownet/<split>.jsonl``; ``serve`` writes ``<split>_serve.jsonl``, ``<split>.manifest.json`` and
+``eval_gflownet/<split>.jsonl``; ``bfs_chains`` writes ``eval_bfs/<split>.jsonl``
+from the agent stores; ``seed_stats`` reports one-hop seed statistics;
+``serve`` writes ``<split>_serve.jsonl``, ``<split>.manifest.json`` and
 ``metrics.json``.  ``retriever.ckpt`` and ``gflownet.ckpt`` name checkpoints in the port's
 format (``train/checkpoint.py``), such as ``train_retriever``'s ``ckpt/best``.
 ``dataset.source`` is ``synthetic`` or ``normalized`` (a materialized split
-from the JAX package's ``build``).  ``device=cpu`` runs on the CPU; the
-default is the GPU.
+from ``build``).  ``device=cpu`` runs on the CPU; the default is the GPU
+(``seed_stats`` and ``bfs_chains`` run on the host only).
 """
 
 from __future__ import annotations
@@ -201,6 +204,111 @@ def _enforce_sub_training_scope(cfg: dict, task: str) -> None:
         )
     if not ds.get("filter"):
         raise ConfigError(f"{task} requires dataset.filter (sub/nonzero filter json)")
+
+
+# Probe texts of the gte parity gate: a question, an entity, a relation and
+# the empty string.
+GTE_PARITY_PROBE = ("what is the capital of france", "Barack Obama", "people.person.place_of_birth", "")
+
+
+def _text_encoder(enc_cfg: dict, device: torch.device):
+    """The build's encoder for ``build.encoder``; ``gte_jax`` is the port's
+    gte encoder, held to the HF reference by the parity gate."""
+    from evi_rag_tpu_torch.data.text_encoder import HashTextEncoder, TorchHFTextEncoder
+
+    kind = enc_cfg.get("kind", "hash")
+    max_length = int(enc_cfg.get("max_length", 64))
+    if kind == "hash":
+        return HashTextEncoder(dim=int(enc_cfg.get("dim", 256)))
+    if kind == "flax_hf":
+        # The flax checkpoint's torch counterpart: the same HF weights through
+        # AutoModel (from_pt does not apply to torch).
+        return TorchHFTextEncoder(enc_cfg["model_path"], max_length=max_length, trust_remote_code=False,
+                                  device=str(device))
+    if kind == "torch_hf":
+        return TorchHFTextEncoder(enc_cfg["model_path"], max_length=max_length,
+                                  trust_remote_code=bool(enc_cfg.get("trust_remote_code", True)),
+                                  device=str(device))
+    if kind != "gte_jax":
+        raise ConfigError(f"unknown build.encoder.kind {kind!r}")
+    from evi_rag_tpu_torch.data.gte import GTETextEncoder, ReferenceEncoderUnavailable
+
+    encoder = GTETextEncoder(enc_cfg["model_path"], max_length=max_length, device=str(device))
+    if bool(enc_cfg.get("parity_check", True)):
+        min_cos = float(enc_cfg.get("parity_min_cosine", 0.999))
+        try:
+            cos = encoder.parity_check(enc_cfg["model_path"], list(GTE_PARITY_PROBE))
+        except ReferenceEncoderUnavailable as exc:
+            # Only a reference that cannot be constructed downgrades the gate
+            # to a loud skip; a failure while encoding or comparing refuses.
+            log.warning(
+                "gte parity_check SKIPPED (HF reference encoder unavailable: %s) -- the encoder is "
+                "unverified against the upstream modeling code for this checkpoint", exc,
+            )
+        else:
+            if cos < min_cos:
+                raise ConfigError(
+                    f"gte port parity FAILED: min cosine {cos:.6f} < {min_cos} vs the HF encoder on probe "
+                    "texts; refusing to build with a diverging encoder "
+                    "(set build.encoder.parity_check=false to override)"
+                )
+            log.info("gte parity_check ok: min cosine %.6f", cos)
+    return encoder
+
+
+def _pipeline_config(b: dict):
+    """``PipelineConfig`` of the ``build`` section."""
+    from evi_rag_tpu_torch.data.pipeline import PipelineConfig, SplitFilter, TextEntityPolicy
+
+    def _filter(section: dict | None) -> SplitFilter:
+        section = section or {}
+        return SplitFilter(
+            skip_no_topic=bool(section.get("skip_no_topic", False)),
+            skip_no_ans=bool(section.get("skip_no_ans", False)),
+            skip_no_path=bool(section.get("skip_no_path", False)),
+        )
+
+    tp = b.get("text_policy", {})
+    fcfg = b.get("filter", {}) or {}
+    return PipelineConfig(
+        dataset=str(b["dataset"]),
+        raw_root=str(b["raw_root"]),
+        out_dir=str(b["out_dir"]),
+        text_policy=TextEntityPolicy(
+            mode=str(tp.get("mode", "all")),
+            exclude_regex=tp.get("exclude_regex"),
+            match_regex=tp.get("match_regex"),
+        ),
+        path_mode=str(b.get("path_mode", "undirected")),
+        entity_normalization=str(b.get("entity_normalization", "none")),
+        train_filter=_filter(fcfg.get("train")),
+        eval_filter=_filter(fcfg.get("eval")),
+        num_workers=int(b.get("num_workers", 0)),
+    )
+
+
+@task_wrapper
+def task_build(cfg: dict, *, run_dir: pathlib.Path) -> dict[str, Any]:
+    """Raw parquet -> the normalized dataset (embeddings, split stores,
+    parquet tables, filters) under ``build.out_dir``; the encoder runs on
+    the GPU unless ``device=cpu``."""
+    from evi_rag_tpu_torch.data.pipeline import build_pipeline
+    from evi_rag_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(cfg.get("device"))
+    b = cfg["build"]
+    encoder = _text_encoder(b.get("encoder", {}), device)
+    res = build_pipeline(_pipeline_config(b), encoder, column_map=b.get("column_map"))
+    log.info("build: %s texts encoded in %.1f s, graphs built in %.1f s", res.num_texts,
+             res.phase_s["encode_s"], res.phase_s["graph_s"])
+    metrics = {
+        "num_entities": res.num_entities,
+        "num_relations": res.num_relations,
+        "num_text_entities": res.num_text_entities,
+        **{f"count/{k}/{s}": v for k, d in res.counts.items() for s, v in d.items()},
+    }
+    save_metrics_json(run_dir / "metrics.json", metrics)
+    return metrics
 
 
 @task_wrapper
@@ -793,12 +901,94 @@ def task_serve(cfg: dict, *, run_dir: pathlib.Path) -> dict[str, Any]:
     return out
 
 
+@task_wrapper
+def task_bfs_chains(cfg: dict, *, run_dir: pathlib.Path) -> dict[str, Any]:
+    """The non-learned BFS chain baseline over the agent stores
+    (``gflownet.g_agent_dir/<split>``): ``eval_bfs/<split>.jsonl`` and its
+    manifest under ``eval.artifacts_dir``.  Host only."""
+    from evi_rag_tpu_torch.data.chains import ChainSettings, build_bfs_candidate_chains, textualize_chain
+    from evi_rag_tpu_torch.eval.artifacts import load_agent_store, write_manifest
+
+    b = cfg.get("bfs_chains", {})
+    settings = ChainSettings(
+        max_chain_length=int(b.get("max_chain_length", 3)),
+        max_chains_per_sample=int(b.get("max_chains_per_sample", 100)),
+        allow_backward=bool(b.get("allow_backward", True)),
+    )
+    splits = list(cfg.get("eval", {}).get("splits", ["test"]))
+    artifacts_dir = pathlib.Path(cfg.get("eval", {}).get("artifacts_dir", run_dir / "artifacts"))
+    id2e, id2r = _vocab_maps(cfg)
+    out_metrics = {}
+    for split in splits:
+        store_dir = pathlib.Path(cfg["gflownet"]["g_agent_dir"]) / split
+        samples = load_agent_store(store_dir)
+        out_dir = artifacts_dir / "eval_bfs"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        path = out_dir / f"{split}.jsonl"
+        n = 0
+        with path.open("w") as f:
+            for s in samples:
+                chains = build_bfs_candidate_chains(
+                    num_nodes=s.num_nodes, heads=s.edge_head_locals, tails=s.edge_tail_locals,
+                    relations=s.edge_relations, scores=s.edge_scores,
+                    node_entity_ids=s.node_entity_ids, start_nodes=s.start_node_locals,
+                    settings=settings,
+                )
+                if id2e:
+                    for c in chains:
+                        c["chain_text"] = textualize_chain(c, id2entity=id2e, id2relation=id2r)
+                rec = {
+                    "sample_id": s.sample_id,
+                    "candidate_chains": [
+                        {k: v for k, v in c.items() if k != "signature"} for c in chains
+                    ],
+                }
+                f.write(json.dumps(rec) + "\n")
+                n += 1
+        write_manifest(out_dir, artifact="eval_bfs", filename=path.name, split=split)
+        out_metrics[f"{split}/num_samples"] = n
+    save_metrics_json(run_dir / "metrics.json", out_metrics)
+    return out_metrics
+
+
+@task_wrapper
+def task_seed_stats(cfg: dict, *, run_dir: pathlib.Path) -> dict[str, Any]:
+    """One-hop seed diagnostics: per-seed incident-edge counts and positive
+    ratios with percentiles.  Host only."""
+    splits = list(cfg.get("eval", {}).get("splits", ["train"]))
+    out: dict[str, Any] = {}
+    for split in splits:
+        samples, *_ = _load_split(cfg, split)
+        edge_counts: list[int] = []
+        pos_ratios: list[float] = []
+        for s in samples:
+            heads, tails = s.edge_index
+            labels = np.asarray(s.edge_labels, dtype=np.float32)
+            for seed_local in np.asarray(s.topic_locals):
+                inc = (heads == seed_local) | (tails == seed_local)
+                n = int(inc.sum())
+                edge_counts.append(n)
+                pos_ratios.append(float(labels[inc].mean()) if n else 0.0)
+        if not edge_counts:
+            continue
+        for name, arr in (("onehop_edges", edge_counts), ("onehop_pos_ratio", pos_ratios)):
+            a = np.asarray(arr, dtype=np.float64)
+            out[f"{split}/{name}/mean"] = float(a.mean())
+            for p in (50, 90, 99):
+                out[f"{split}/{name}/p{p}"] = float(np.percentile(a, p))
+    save_metrics_json(run_dir / "metrics.json", out)
+    return out
+
+
 TASKS: dict[str, Callable] = {
+    "build": task_build,
     "train_retriever": task_train_retriever,
     "eval_retriever": task_eval_retriever,
     "train_gflownet": task_train_gflownet,
     "eval_gflownet": task_eval_gflownet,
+    "bfs_chains": task_bfs_chains,
     "serve": task_serve,
+    "seed_stats": task_seed_stats,
 }
 
 

@@ -1,12 +1,16 @@
-"""Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
+"""Build and load the port's native libraries (nvcc or g++ -> shared library -> ctypes).
 
-Each source under ``evi_rag_tpu_torch/csrc/`` compiles on first use into
+Each CUDA source under ``evi_rag_tpu_torch/csrc/`` compiles on first use into
 ``evi_rag_tpu_torch/_build/`` (listed in ``.gitignore``), under a name that
 carries a hash of the source, of every ``csrc/*.cuh`` header it may include
 and of the flags, so an edited source or header rebuilds.  ``build`` starts
 one ``nvcc`` per missing library, all at once.  The libraries have a plain C
-interface; pointers and the stream pass as integers.  Nothing here runs at
-import time, and a failed build raises.
+interface; pointers and the stream pass as integers.  ``load_host_library``
+does the same for a C++ source of host code (``csrc/graphcore.cpp``) with
+``g++``.  Every compiler writes a temporary file of its own that is then
+renamed into place, so processes that build the same library at once each
+leave a whole one.  Nothing here runs at import time, and a failed build
+raises.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -84,4 +90,31 @@ def load_library(source: str) -> ctypes.CDLL:
     with _LOCK:
         if source not in _LOADED:
             _LOADED[source] = ctypes.CDLL(str(library_path(source)))
+        return _LOADED[source]
+
+
+def host_library_path(source: str) -> pathlib.Path:
+    digest = hashlib.sha256((CSRC / source).read_bytes())
+    digest.update(" ".join(GXX_FLAGS).encode())
+    return BUILD_DIR / f"lib{pathlib.Path(source).stem}-{digest.hexdigest()[:16]}.so"
+
+
+def load_host_library(source: str) -> ctypes.CDLL:
+    """Compile the host C++ source ``csrc/<source>`` with ``g++`` if its
+    library is missing, then load it; raises if the build fails."""
+    with _LOCK:
+        if source in _LOADED:
+            return _LOADED[source]
+        out = host_library_path(source)
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run(["g++", *GXX_FLAGS, str(CSRC / source), "-o", str(tmp)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            BUILD_LOG[source] = proc.stdout
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"g++ failed:\n{source}:\n{proc.stdout}")
+            os.replace(tmp, out)
+        _LOADED[source] = ctypes.CDLL(str(out))
         return _LOADED[source]

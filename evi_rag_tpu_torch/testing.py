@@ -28,6 +28,9 @@ from __future__ import annotations
 import hashlib
 import json
 import pathlib
+import re
+import zlib
+from typing import Iterator
 
 import numpy as np
 import torch
@@ -256,3 +259,201 @@ def gfn_card_vs_cpu_step(hidden: int = 64, questions: int = 4, seed: int = 0,
             "grad_ratio": grad_ratio, "zero_grad_leaves": sorted(k for k, v in grad_max.items() if v == 0.0),
             "min_leaf_grad": min(grad_max.values()), "param_diff": param_diff,
             "edges": int(batch.graph.edge_mask.sum())}
+
+
+# --------------------------------------------------------------------------- #
+# The build's synthetic raw data and gte stand-ins
+# --------------------------------------------------------------------------- #
+
+_DOMAINS = ("film", "people", "location", "sports", "music", "government",
+            "business", "education", "medicine", "award")
+_PROPS = ("contained_by", "directed_by", "member_of", "born_in", "works_for",
+          "plays_for", "capital_of", "genre", "spouse", "nationality",
+          "parent", "founded", "position", "language", "currency")
+
+# The script's presets: the reference split sizes, the global entity pool,
+# the relations, the hop mix and the log-normal edge-count mean.
+PRESETS = {
+    "webqsp": dict(train=2826, validation=246, test=1628, pool=120_000, relations=600,
+                   hop_mix=(0.35, 0.35, 0.30), lognorm_mean=7.1,
+                   prefix={"train": "WebQTrn", "validation": "WebQVal", "test": "WebQTest"}),
+    "cwq": dict(train=27_639, validation=3_519, test=3_531, pool=300_000, relations=800,
+                hop_mix=(0.15, 0.45, 0.40), lognorm_mean=7.25,
+                prefix={"train": "CWQTrn", "validation": "CWQVal", "test": "CWQTest"}),
+}
+EDGE_CAP = 6144
+
+
+def _entity_pool(n: int, rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray]:
+    """Global entity names: ~25% CVT-style m./g. ids (non-text), the rest
+    readable names."""
+    is_cvt = rng.random(n) < 0.25
+    names = np.empty(n, dtype=object)
+    for i in range(n):
+        if is_cvt[i]:
+            names[i] = f"{'m' if rng.random() < 0.8 else 'g'}.0{i:06x}"
+        else:
+            names[i] = f"Entity {i} {_DOMAINS[i % len(_DOMAINS)].title()}"
+    return names, is_cvt
+
+
+def _relation_pool(n: int, rng: np.random.Generator) -> np.ndarray:
+    rels = np.empty(n, dtype=object)
+    for i in range(n):
+        d = _DOMAINS[rng.integers(len(_DOMAINS))]
+        t = _DOMAINS[rng.integers(len(_DOMAINS))]
+        p = _PROPS[rng.integers(len(_PROPS))]
+        rels[i] = f"{d}.{t}.{p}_{i}"
+    return rels
+
+
+def _edge_count(rng: np.random.Generator, cap: int, lognorm_mean: float) -> int:
+    # Median ~1.2k, p95 ~4k triples at mean 7.1.
+    return int(np.clip(rng.lognormal(mean=lognorm_mean, sigma=0.75), 24, cap))
+
+
+def make_question(qid: str, rng: np.random.Generator, ent_names: np.ndarray, rel_names: np.ndarray, *,
+                  edge_cap: int, hop_mix: tuple[float, float, float] = (0.35, 0.35, 0.30),
+                  lognorm_mean: float = 7.1) -> dict:
+    """One RoG row: 1-2 topics, 1-3 answers, a planted 1/2/3-hop chain to
+    each answer whose undirected shortest path is exactly the hop count,
+    distractor edges up to a log-normal edge count, and a question that
+    names the chain's relations."""
+    n_edges = _edge_count(rng, edge_cap, lognorm_mean)
+    n_nodes = max(16, int(n_edges ** 0.78))
+    node_ids = rng.choice(len(ent_names), size=n_nodes, replace=False)
+
+    n_topics = 1 if rng.random() < 0.85 else 2
+    n_answers = 1 + (rng.random() < 0.4) + (rng.random() < 0.15)
+    hops = 1 + int(rng.choice(3, p=np.asarray(hop_mix) / sum(hop_mix)))
+    n_mids = (hops - 1) * n_answers
+    topics = node_ids[:n_topics]
+    answers = node_ids[n_topics : n_topics + n_answers]
+    mids = node_ids[n_topics + n_answers : n_topics + n_answers + n_mids]
+
+    triples: list[list[str]] = []
+    seen: set[tuple[int, int, int]] = set()
+    # Answers of >=2-hop questions take no distractor edges; 3-hop questions
+    # get no topic<->m2 edge, so the chain's middle edge is a bridge.
+    protected = set(int(a) for a in answers) if hops >= 2 else set()
+    forbidden_pairs: set[frozenset] = set()
+    if hops == 3:
+        last_mids = mids[n_answers:]
+        forbidden_pairs = {frozenset((int(t), int(m))) for t in topics for m in last_mids}
+
+    def add(h: int, r: int, t: int) -> bool:
+        if h == t or (h, r, t) in seen:
+            return False
+        seen.add((h, r, t))
+        triples.append([str(ent_names[h]), str(rel_names[r]), str(ent_names[t])])
+        return True
+
+    gold_rel = rng.integers(len(rel_names), size=1 + hops)
+    for a_i, a in enumerate(answers):
+        t = topics[a_i % n_topics]
+        if hops == 1:
+            add(int(t), int(gold_rel[0]), int(a))
+        else:
+            chain = [int(t)]
+            chain += [int(mids[j * n_answers + a_i]) for j in range(hops - 1)]
+            chain.append(int(a))
+            for j in range(hops):
+                add(chain[j], int(gold_rel[j]), chain[j + 1])
+
+    hot = np.concatenate([topics, mids]) if hops >= 2 else np.concatenate([topics, answers])
+    open_ids = np.array([i for i in node_ids if int(i) not in protected]) if protected else node_ids
+    while len(triples) < n_edges:
+        batch = min(1024, n_edges - len(triples))
+        h_hot = rng.random(batch) < 0.35
+        hs = np.where(h_hot, rng.choice(hot, size=batch), open_ids[rng.integers(len(open_ids), size=batch)])
+        ts = open_ids[rng.integers(len(open_ids), size=batch)]
+        rs = rng.integers(len(rel_names), size=batch)
+        for h, r, t in zip(hs, rs, ts):
+            if forbidden_pairs and frozenset((int(h), int(t))) in forbidden_pairs:
+                continue
+            add(int(h), int(r), int(t))
+
+    rel_phrase = " then ".join(
+        str(rel_names[int(gold_rel[j])]).replace(".", " ").replace("_", " ") for j in range(hops))
+    return {
+        "id": qid,
+        "question": f"what is the {rel_phrase} of {ent_names[topics[0]]}?",
+        "answer": [str(ent_names[a]) for a in answers],
+        "q_entity": [str(ent_names[t]) for t in topics],
+        "a_entity": [str(ent_names[a]) for a in answers],
+        "graph": triples,
+        "choices": [],
+    }
+
+
+def synthetic_rows(preset: str = "webqsp", *, seed: int = 0, counts: dict[str, int] | None = None,
+                   pool: int | None = None, relations: int | None = None,
+                   edge_cap: int = EDGE_CAP) -> Iterator[tuple[str, list[dict]]]:
+    """``(split, rows)`` for train, validation and test in the script's
+    order and random stream: the script's rows for the same seed and
+    sizes.  ``counts`` replaces the preset's question count of the splits
+    it names (0 skips a split); ``pool`` / ``relations`` resize the pools."""
+    p = PRESETS[preset]
+    rng = np.random.default_rng(seed)
+    ent_names, _ = _entity_pool(p["pool"] if pool is None else pool, rng)
+    rel_names = _relation_pool(p["relations"] if relations is None else relations, rng)
+    for split in ("train", "validation", "test"):
+        n = p[split] if counts is None or split not in counts else counts[split]
+        if n:
+            yield split, [make_question(f"{p['prefix'][split]}-{i}", rng, ent_names, rel_names, edge_cap=edge_cap,
+                                        hop_mix=p["hop_mix"], lognorm_mean=p["lognorm_mean"]) for i in range(n)]
+
+
+class HashTokenizer:
+    """A stand-in for a BERT-style HF tokenizer in the call form that
+    ``GTETextEncoder.encode`` uses (``padding="max_length"``, truncation,
+    ``return_tensors="np"``): lower-cased word and punctuation pieces hashed
+    (crc32) into ``[5, vocab_size)``, between ``[CLS]`` (2) and ``[SEP]``
+    (3), padded with 0; ``input_ids`` and ``attention_mask`` as int64."""
+
+    PAD, CLS, SEP, FIRST = 0, 2, 3, 5
+
+    def __init__(self, vocab_size: int) -> None:
+        self.vocab_size = int(vocab_size)
+
+    def ids(self, text: str) -> list[int]:
+        return [self.FIRST + zlib.crc32(w.encode()) % (self.vocab_size - self.FIRST)
+                for w in re.findall(r"\w+|[^\w\s]", text.lower())]
+
+    def __call__(self, texts, *, padding="max_length", truncation=True, max_length=64, return_tensors="np"):
+        if padding != "max_length" or not truncation or return_tensors != "np":
+            raise ValueError("HashTokenizer pads to max_length, truncates and returns numpy arrays only")
+        ids = np.full((len(texts), max_length), self.PAD, np.int64)
+        mask = np.zeros((len(texts), max_length), np.int64)
+        for r, text in enumerate(texts):
+            row = [self.CLS, *self.ids(text)[: max_length - 2], self.SEP]
+            ids[r, : len(row)] = row
+            mask[r, : len(row)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+def random_gte_state(cfg, seed: int = 0) -> dict[str, torch.Tensor]:
+    """An f32 gte state dict (upstream keys, every bias present) from a
+    seeded ``torch.Generator``: linear weights N(0, 1 / fan_in), embeddings
+    N(0, 1), biases N(0, 0.02^2), LayerNorm scales 1 + N(0, 0.05^2) and
+    shifts N(0, 0.05^2)."""
+    g = torch.Generator().manual_seed(seed)
+    normal = lambda *shape, std: torch.randn(*shape, generator=g) * std
+    d, i = cfg.hidden_size, cfg.intermediate_size
+    ln = lambda name: {f"{name}.weight": 1 + normal(d, std=0.05), f"{name}.bias": normal(d, std=0.05)}
+    state = {"embeddings.word_embeddings.weight": normal(cfg.vocab_size, d, std=1.0),
+             "embeddings.token_type_embeddings.weight": normal(cfg.type_vocab_size, d, std=1.0),
+             **ln("embeddings.LayerNorm")}
+    for layer in range(cfg.num_hidden_layers):
+        p = f"encoder.layer.{layer}"
+        state.update({
+            f"{p}.attention.qkv_proj.weight": normal(3 * d, d, std=d ** -0.5),
+            f"{p}.attention.qkv_proj.bias": normal(3 * d, std=0.02),
+            f"{p}.attention.o_proj.weight": normal(d, d, std=d ** -0.5),
+            f"{p}.attention.o_proj.bias": normal(d, std=0.02),
+            f"{p}.mlp.up_gate_proj.weight": normal(2 * i, d, std=d ** -0.5),
+            f"{p}.mlp.down_proj.weight": normal(d, i, std=i ** -0.5),
+            f"{p}.mlp.down_proj.bias": normal(d, std=0.02),
+            **ln(f"{p}.attn_ln"), **ln(f"{p}.mlp_ln"),
+        })
+    return state

@@ -1,4 +1,5 @@
-"""The hand-written kernels on the card against their plain versions.
+"""The hand-written kernels on the card against their plain versions, and
+the build's gte encoder and native BFS library on the card's machine.
 
 These tests need an NVIDIA GPU (the kernels have no CPU mode): they carry the
 ``cuda`` marker and skip without one.  They import no JAX, so they run on the
@@ -295,3 +296,59 @@ def test_gflownet_step_on_the_card_matches_the_cpu(cuda):
     assert res["loss_rel"] <= 1e-5, res
     assert res["grad_ratio"] <= 1.0, res
     assert res["param_diff"] <= 1e-6, res
+
+
+def test_gte_on_the_card_matches_the_cpu(cuda):
+    """A small gte (4 layers, hidden 256, 4 heads, intermediate 512) with
+    seeded weights, f32 with TF32 off: the pooled outputs of ragged rows
+    (one [CLS] [SEP] only) on the card within min cosine 0.99999 and max abs
+    error 1e-4 x max |x| of the CPU's, and ``encode`` through the stand-in
+    tokenizer the same on both devices."""
+    from evi_rag_tpu_torch.data.gte import GTEConfig, GTEModel, GTETextEncoder, mean_pool
+    from evi_rag_tpu_torch.testing import HashTokenizer, random_gte_state
+
+    cfg = GTEConfig(vocab_size=1000, hidden_size=256, num_hidden_layers=4, num_attention_heads=4,
+                    intermediate_size=512)
+    state = random_gte_state(cfg, seed=4)
+    models = {dev: GTEModel.from_state_dict(state, cfg, device=dev) for dev in ("cpu", "cuda")}
+    rng = np.random.default_rng(4)
+    ids = rng.integers(5, cfg.vocab_size, size=(6, 32))
+    mask = np.zeros((6, 32), np.int64)
+    for row, n in enumerate((32, 20, 9, 5, 3, 2)):
+        mask[row, :n] = 1
+    pooled = {}
+    for dev, model in models.items():
+        i, m = torch.as_tensor(ids, device=dev), torch.as_tensor(mask, device=dev)
+        with torch.inference_mode():
+            pooled[dev] = mean_pool(model(i, m), m).cpu().double().numpy()
+    a, b = pooled["cpu"], pooled["cuda"]
+    cos = (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+    assert cos.min() >= 0.99999 and np.abs(a - b).max() <= 1e-4 * np.abs(a).max()
+    texts = ["Entity 12 Film", "people.person.place_of_birth", "what is the capital of france", ""]
+    enc = {dev: GTETextEncoder.from_model(m, HashTokenizer(cfg.vocab_size), max_length=16) for dev, m in models.items()}
+    got = {dev: e.encode(texts, batch_size=8) for dev, e in enc.items()}
+    np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-4, atol=1e-4 * np.abs(got["cpu"]).max())
+
+
+def test_native_graphcore_builds_here_and_matches_numpy(cuda, tmp_path, monkeypatch):
+    """``csrc/graphcore.cpp`` built with g++ on this machine (into an empty
+    build directory) and held to the numpy engine on random graphs."""
+    from evi_rag_tpu_torch.data import bfs_label, native
+    from evi_rag_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_LOADED", {})
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_load_failed", False)
+    assert native.load_library() is not None, _build.BUILD_LOG.get(native.SOURCE)
+    assert _build.host_library_path(native.SOURCE).exists()
+    rng = np.random.default_rng(42)
+    for mode in ("undirected", "qa_directed"):
+        for _ in range(6):
+            src, dst = rng.integers(0, 40, size=120), rng.integers(0, 40, size=120)
+            case = dict(num_nodes=40, edge_src=src, edge_dst=dst, sources=rng.integers(0, 40, size=2),
+                        targets=rng.integers(0, 40, size=3))
+            want = bfs_label.shortest_path_union_by_pair(path_mode=mode, **case)
+            got = native.shortest_path_union_by_pair_native(path_mode=mode, **case)
+            np.testing.assert_array_equal(got[0], want[0])
+            assert list(got[1:]) == list(want[1:])

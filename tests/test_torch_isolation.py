@@ -3,6 +3,8 @@
 * No file of ``evi_rag_tpu_torch/`` and not ``chip_smoke.py`` imports JAX,
   flax, optax, orbax or anything of ``evi_rag_tpu`` (an AST scan, so lazy
   imports inside functions count too).
+* ``pyarrow``, ``transformers`` and ``safetensors`` (absent on the card's
+  machine) are imported only inside the functions that need them.
 * The default device is CUDA: with no GPU and no explicit CPU request the
   entry points raise instead of running on the CPU.
 """
@@ -16,6 +18,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "evi_rag_tpu")
+LAZY = ("pyarrow", "transformers", "safetensors")
 
 
 def _port_files():
@@ -40,6 +43,19 @@ def _imported_modules(path: pathlib.Path):
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_optional_packages_are_imported_lazily(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    top = []
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            top += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            top.append(node.module)
+    bad = [m for m in top if m.split(".")[0] in LAZY]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad} at module level"
 
 
 def test_resolve_device_defaults_to_cuda(monkeypatch):
@@ -69,7 +85,38 @@ def test_entry_points_raise_without_gpu(monkeypatch, tmp_path):
                     question_emb=ds.question_emb, k=4, num_rounds=2, num_reverse_rounds=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.task_serve.__wrapped__({"retriever": {"ckpt": str(tmp_path)}}, run_dir=tmp_path)
+    # build resolves the device before its encoder, whatever the encoder.
+    for kind in ("hash", "gte_jax"):
+        build = {"dataset": "toy", "raw_root": str(tmp_path), "out_dir": str(tmp_path / "out"),
+                 "encoder": {"kind": kind, "model_path": str(tmp_path)}}
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.task_build.__wrapped__({"build": build}, run_dir=tmp_path)
+    assert not (tmp_path / "out").exists()
     assert np.isfinite(ds.entity_emb).all()
+
+
+def test_build_entry_points_raise_without_gpu(monkeypatch, tmp_path):
+    """The gte model and encoder and the HF encoder run on the card unless
+    the CPU is named; ``seed_stats`` is host only."""
+    from evi_rag_tpu_torch import cli
+    from evi_rag_tpu_torch.data.gte import GTEConfig, GTEModel, GTETextEncoder
+    from evi_rag_tpu_torch.data.text_encoder import TorchHFTextEncoder
+    from evi_rag_tpu_torch.testing import random_gte_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = GTEConfig(vocab_size=16, hidden_size=8, num_hidden_layers=1, num_attention_heads=2, intermediate_size=8)
+    state = random_gte_state(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GTEModel.from_state_dict(state, cfg)
+    assert GTEModel.from_state_dict(state, cfg, device="cpu").cfg == cfg
+    for make in (GTETextEncoder, TorchHFTextEncoder):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(str(tmp_path))
+    run = tmp_path / "stats"
+    run.mkdir()
+    m = cli.task_seed_stats.__wrapped__({"dataset": {"num_samples": 4, "emb_dim": 8}, "eval": {"splits": ["train"]}},
+                                        run_dir=run)
+    assert m["train/onehop_edges/mean"] > 0
 
 
 def test_pooled_entry_points_raise_without_gpu(monkeypatch):

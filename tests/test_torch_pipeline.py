@@ -16,6 +16,7 @@ import pytest
 
 from bench import make_bundle
 from evi_rag_tpu import cli as jcli
+from evi_rag_tpu.data import bfs_label as jbfs
 from evi_rag_tpu.data.pipeline import PipelineConfig, build_pipeline, load_retrieval_split as j_load
 from evi_rag_tpu.data.store import SampleStore as JStore
 from evi_rag_tpu.data.text_encoder import HashTextEncoder
@@ -53,8 +54,12 @@ def normalized(tmp_path_factory):
     pq.write_table(pa.Table.from_pylist(rows("v", 6)), raw / "validation-00000.parquet")
     pq.write_table(pa.Table.from_pylist(rows("t", 3)), raw / "train-00000.parquet")
     out = tmp / "normalized"
-    build_pipeline(PipelineConfig(dataset="toy", raw_root=str(raw), out_dir=str(out)),
-                   HashTextEncoder(dim=DIM))
+    # The numpy BFS engine: no port test compiles native/libgraphcore.so,
+    # which JAX tests in other workers may be building at the same time.
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr("evi_rag_tpu.data.pipeline.best_shortest_path_union", jbfs.shortest_path_union_by_pair)
+        build_pipeline(PipelineConfig(dataset="toy", raw_root=str(raw), out_dir=str(out)),
+                       HashTextEncoder(dim=DIM))
     return tmp, out
 
 
