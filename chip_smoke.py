@@ -73,7 +73,20 @@ Phases, each printed as it runs:
    (``testing.gfn_card_vs_cpu_step``).  8e: ``train_retriever ->
    eval_retriever -> train_gflownet -> eval_gflownet`` through the CLI at the
    small setting, then 6 steps on one fixed batch must lower the loss;
-   ``bfs_chains`` runs in that chain after ``eval_retriever`` (9e);
+   ``bfs_chains`` runs in that chain after ``eval_retriever`` (9e); then the
+   ``reasoner`` over the chain's validation store (the oracle, equal to a
+   numpy recomputation; the mock LLM over triplets, over eval_gflownet's
+   rollouts and over eval_bfs's chains; ``reasoner=ollama`` against a stub
+   ``/api/chat`` on 127.0.0.1) and ``sweep=gflownet_tpe`` with 2 trials,
+   both ``ok``.  8f: on 8b's setup and trained modules, one train batch and
+   one set of draws, the sample-then-score rollout against the canonical
+   loop (equal actions or one graph at a near tie, outputs within rtol
+   1e-4 / atol 1e-5, the loss within rtol 1e-3 / atol 1e-4), step ms and
+   peak memory of canonical, sample-then-score, + remat, + "dots", and
+   canonical + "dots", and one traced sample-then-score step.  8g: the
+   reasoner (oracle, mock triplets with ``configs/reasoner/ollama.yaml``'s
+   nine windows) over 8a's validation store: records/s and the share of
+   ``count_tokens``;
 9. the data build (no kernel lies on it: the gte GEMMs and attention are
    library calls).  9a: ``csrc/graphcore.cpp`` built with g++ and held to
    the numpy BFS engine on random graphs in both path modes.  9b: gte-large
@@ -88,7 +101,14 @@ Phases, each printed as it runs:
    timed alone, the graph pass s and the engine that ran, bytes, peak
    memory.  9d: ``seed_stats`` through the CLI on the built split, and
    ``serve`` of it with phase 7a's retriever through kernel 3, held to the
-   plain-version serve by phase 4's rule (q/s, bucket shapes).
+   plain-version serve by phase 4's rule (q/s, bucket shapes);
+10. ``sweep`` at full width: ``sweep=retriever_lr``, ``retriever=production``,
+   3 trials of 1 epoch at a constant lr on phase 7a's train split and phase
+   4's validation split: every trial ``ok``, the best the trial with the
+   highest ``answer/reachability@100``, each trial's wall time and peak
+   memory (a later peak 10% above the first's fails as a leak), then
+   ``serve`` of the best trial's ``ckpt/best`` through kernel 3 under phase
+   4's rule.
 
 ``python3 chip_smoke.py --ablation [M]`` runs only an ablation of the three
 wgmma kernels instead: each source built again with a switch of
@@ -951,6 +971,12 @@ def profile_train(step_fn, state, batches, label: str = "7a profile"):
         state, _ = step_fn(state, batch)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+    return kernel_summary(prof, wall_ms, label)
+
+
+def kernel_summary(prof, wall_ms: float, label: str):
+    """Device time by kernel, launches and the busy share of a profiled
+    train step (printed; None when the profiler saw no kernel)."""
     from torch.autograd import DeviceType
 
     # Kernels only: the autograd and aten ops that launched them carry the
@@ -965,11 +991,12 @@ def profile_train(step_fn, state, batches, label: str = "7a profile"):
         log(f"[{label}] device time: not measured (profiler saw no kernel events)")
         return None
     busy = sum(r[1] for r in rows)
-    log(f"[{label}] one train step: wall {wall_ms:.1f} ms (profiled), device kernel time {busy:.1f} ms, "
-        f"busy share {busy / wall_ms:.3f}")
+    launches = sum(r[2] for r in rows)
+    log(f"[{label}] one train step: wall {wall_ms:.1f} ms (profiled), device kernel time {busy:.1f} ms in "
+        f"{launches} launches, busy share {busy / wall_ms:.3f}")
     for name, ms, n in rows[:12]:
         log(f"[{label}]   {ms:9.3f} ms  x{n:5d}  {name[:90]}")
-    return dict(wall_ms=wall_ms, device_ms=busy, top=rows[:12])
+    return dict(wall_ms=wall_ms, device_ms=busy, launches=launches, top=rows[:12])
 
 
 def realistic_loader():
@@ -1048,17 +1075,19 @@ def timed_step(step_fn, state, batch):
     return state, m, s.elapsed_time(e)
 
 
-def phase_gflownet(smi: str, retriever_ckpt: str):
+def phase_gflownet(smi: str, retriever_ckpt: str, load_split):
     """8a: eval_retriever at production width writes the g_agent stores;
-    8b: timed GFlowNet training on the train store; 8c: eval_gflownet on the
-    validation store (8a-8c on the realistic splits of ``realistic_loader``);
-    8d: one f32 step on the card against the CPU; 8e: the CLI chain at the
-    small setting (no kernel lies on these paths)."""
+    8b: timed GFlowNet training on the train store; 8f: sample-then-score
+    against the canonical loop and five timed variants; 8c: eval_gflownet
+    on the validation store; 8g: the reasoner over the validation store
+    (8a-8c, 8f, 8g on the realistic splits of ``load_split``); 8d: one f32
+    step on the card against the CPU; 8e: the CLI chain at the small setting
+    with the reasoner and a sweep (no kernel lies on these paths)."""
     from unittest import mock
 
     from evi_rag_tpu_torch import cli
 
-    with mock.patch.object(cli, "_load_split", realistic_loader()):
+    with mock.patch.object(cli, "_load_split", load_split):
         out = phase_gflownet_realistic(smi, retriever_ckpt)
     out["chain"] = phase_gflownet_chain(str(ROOT / "configs"))
     shutil.rmtree(GFN_WORK)  # ~100 MB of stores, records and checkpoints
@@ -1175,6 +1204,7 @@ def phase_gflownet_realistic(smi: str, retriever_ckpt: str):
         log(f"[8b train_gflownet] {name} step: {step_ms:.2f} ms, peak {row['peak_gib']:.2f} GiB, loss {row['loss']:.4f}")
         del st, fn, extra
     out["train"] = train
+    out["sts"] = phase_sts(gcfg, modules, bundle, batches, tables, dev)
     gfn_ckpt = GFN_WORK / "gfn" / "best"
     cli.save_gflownet_checkpoint(gfn_ckpt, state.params, bundle_np, {
         "parity_meta": rmeta["parity_meta"], "retriever_ckpt_sha256": rmeta.get("params_sha256")}, None)
@@ -1212,6 +1242,8 @@ def phase_gflownet_realistic(smi: str, retriever_ckpt: str):
         f"records written; eval pass {eval_s:.2f} s = {out['eval']['questions_per_s']:.1f} q/s, peak "
         f"{out['eval']['peak_gib']:.2f} GiB")
 
+    out["reasoner"] = phase_reasoner_realistic(configs, art)
+
     # 8d: one f32 step on the card against the CPU (TF32 is off, phase 1).
     vs = gfn_card_vs_cpu_step()
     if vs["zero_grad_leaves"] or not (vs["loss_rel"] <= 1e-5 and vs["grad_ratio"] <= 1.0
@@ -1223,6 +1255,136 @@ def phase_gflownet_realistic(smi: str, retriever_ckpt: str):
         f"card {vs['loss_card']:.7f} cpu {vs['loss_cpu']:.7f} (rel {vs['loss_rel']:.2e}, tol 1e-5); worst gradient "
         f"leaf at {vs['grad_ratio']:.3f} of atol 1e-5 + rtol 1e-3; AdamW on the CPU's gradients: parameters within "
         f"{vs['param_diff']:.2e} (tol 1e-6)")
+    return out
+
+
+STS_VARIANTS = (("canonical", {}), ("sample-then-score", dict(sample_then_score=True)),
+                ("sample-then-score + remat", dict(sample_then_score=True, remat_policy=True)),
+                ("sample-then-score + dots", dict(sample_then_score=True, remat_policy="dots")),
+                ("canonical + dots", dict(remat_policy="dots")))
+STS_TIMED = 5              # 8f: timed steps per variant, after one off the clock
+
+
+def phase_sts(gcfg, modules, bundle, batches, tables, dev):
+    """8f: on 8b's setup, 8b's trained modules and one train batch with one
+    set of draws (dropout masks included), the sample-then-score rollout
+    held to the canonical loop (``testing.sts_vs_canonical``: equal actions
+    or at most one graph at a near tie, rollout outputs within rtol 1e-4 /
+    atol 1e-5, the step's loss within rtol 1e-3 / atol 1e-4); then step ms
+    (median of ``STS_TIMED`` pipelined steps, CUDA events, as 8b times its
+    epoch) and peak memory of five variants on the same batches, and one
+    traced sample-then-score step (``utils.profiling.trace``)."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from evi_rag_tpu_torch import testing
+    from evi_rag_tpu_torch.models.batches import replicate_agent_batch
+    from evi_rag_tpu_torch.models.gflownet.actor import make_rollout_draws
+    from evi_rag_tpu_torch.train import gflownet_trainer as gt
+    from evi_rag_tpu_torch.utils.profiling import trace
+
+    r = gcfg.num_train_rollouts
+    batch = gt._prepare(next(batches(0)), dev, tables)
+    draws = make_rollout_draws(gcfg.actor, replicate_agent_batch(batch, r), hidden_dim=H, dropout=gcfg.dropout,
+                               train=True, sample=True, generator=torch.Generator(device=dev).manual_seed(11))
+    res = testing.sts_vs_canonical(gcfg, modules, bundle, batch, draws, bc_weight=gcfg.bc_weight)
+    del draws
+    bad = [d for d in res["differing"] if not d["near_tie"]]
+    if bad or len(res["differing"]) > 1 or max(res["ratios"].values()) > 1.0 or res["loss_ratio"] > 1.0:
+        raise AssertionError(f"8f: sample-then-score differs from the canonical loop: {res}")
+    log(f"[8f sts] sample-then-score vs canonical on one train batch ({res['graphs']} graphs = {GFN_BATCH} x {r} "
+        f"rollouts, {res['acting_steps']} acting steps, dropout {gcfg.dropout}, one set of draws): "
+        f"{len(res['differing'])} graphs differ " + (f"{res['differing']} " if res["differing"] else "")
+        + "; worst ratio to rtol 1e-4 / atol 1e-5: " + ", ".join(f"{k} {v:.3f}" for k, v in res["ratios"].items())
+        + f"; loss canonical {res['loss_canonical']:.6f} sts {res['loss_sts']:.6f} (ratio to rtol 1e-3 / atol "
+        f"1e-4: {res['loss_ratio']:.3f})")
+
+    rows = {}
+    for name, change in STS_VARIANTS:
+        _, st, fn = gfn_train_setup(dc.replace(gcfg, **change), bundle, tables, dev)
+        it = endless(batches, 400)  # the same batches for every variant
+        st, _ = fn(st, next(it))  # first call off the clock
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        events, losses = [], []
+        for _ in range(STS_TIMED):  # pipelined as 8b's epoch: one sync after the last step
+            s_ev, e_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s_ev.record()
+            st, m = fn(st, next(it))
+            e_ev.record()
+            events.append((s_ev, e_ev))
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        times = [a.elapsed_time(b) for a, b in events]
+        losses = [float(x) for x in losses]
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"8f {name}: non-finite losses {losses}")
+        rows[name] = dict(step_ms=float(np.median(times)), step_ms_all=times,
+                          peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30, losses=losses)
+        if name == "sample-then-score":
+            t0 = time.perf_counter()
+            with trace(GFN_WORK / "sts_trace") as prof:
+                st, _ = fn(st, next(it))
+            prof_row = kernel_summary(prof, (time.perf_counter() - t0) * 1e3, "8f sts profile")
+            rows[name]["profile"] = prof_row
+            if prof_row:
+                log(f"[8f sts profile] device kernel time / pipelined step ms: "
+                    f"{prof_row['device_ms'] / rows[name]['step_ms']:.3f} (busy share without the profiler)")
+        del st, fn, it
+    log("[8f sts] step ms (median of " + f"{STS_TIMED} pipelined steps, CUDA events) and peak: " + "; ".join(
+        f"{n} {v['step_ms']:.2f} ms {v['peak_gib']:.2f} GiB" for n, v in rows.items()))
+    return dict(check=res, variants=rows)
+
+
+def phase_reasoner_realistic(configs: str, art: pathlib.Path):
+    """8g: the reasoner over 8a's validation store (``QUESTIONS``
+    questions) with ``configs/reasoner/ollama.yaml``'s window grid: the
+    oracle, then the mock LLM over triplets; records, records/s and the
+    share of the task's time spent in ``count_tokens``."""
+    from unittest import mock
+
+    import yaml
+
+    from evi_rag_tpu_torch import cli
+    from evi_rag_tpu_torch.eval import reasoner
+    from evi_rag_tpu_torch.eval.artifacts import load_agent_store
+
+    rule = offline_token_rule()
+    samples = len(load_agent_store(art / "g_agent" / "validation"))  # oracle mode: one record a sample
+    grid = yaml.safe_load((ROOT / "configs" / "reasoner" / "ollama.yaml").read_text())["window_k"]
+    store = [f"eval.artifacts_dir={art}", f"gflownet.g_agent_dir={art / 'g_agent'}", "eval.splits=[validation]"]
+    spent = {"s": 0.0, "calls": 0}
+    count = reasoner.count_tokens
+
+    def timed_count(text, **kw):
+        t = time.perf_counter()
+        try:
+            return count(text, **kw)
+        finally:
+            spent["s"] += time.perf_counter() - t
+            spent["calls"] += 1
+
+    out = {}
+    for name, overrides in (("oracle", ["experiment=reasoner_oracle"]),
+                            ("mock triplets", ["reasoner=mock", f"reasoner.window_k={json.dumps(grid)}"])):
+        logs = GFN_DIR / "logs" / f"reasoner_{name.replace(' ', '_')}"
+        spent.update(s=0.0, calls=0)
+        t = time.perf_counter()
+        with mock.patch.object(reasoner, "count_tokens", timed_count):
+            rc = cli.main(["reasoner", "--configs-dir", configs, *store, *overrides, f"paths.log_dir={logs}"])
+        wall = time.perf_counter() - t
+        m = latest_metrics(logs)
+        records = int(m["validation/results/total"]) if name != "oracle" else samples
+        if rc != 0 or records <= 0:
+            raise AssertionError(f"8g reasoner {name}: rc {rc}, {records} records, {m}")
+        out[name] = dict(records=records, wall_s=wall, records_per_s=records / wall, count_tokens_s=spent["s"],
+                         count_tokens_calls=spent["calls"], count_tokens_share=spent["s"] / wall)
+        log(f"[8g reasoner] {name} over the validation store ({samples} agent samples"
+            + (f", windows {grid}" if name != "oracle" else "") + f"): {records} records in {wall:.2f} s = "
+            f"{records / wall:.1f} records/s; count_tokens {spent['calls']} calls, {spent['s']:.3f} s "
+            f"({spent['s'] / wall:.3f} of the task); rule {rule}")
     return out
 
 
@@ -1300,7 +1462,144 @@ def phase_gflownet_chain(configs: str):
     log(f"[8e cli chain] " + ", ".join(f"{r['task']} {r['seconds']:.1f} s" for r in rows)
         + f" (exit 0, manifests written); eval_gflownet answer_hit@1 {hit:.4f}; 6 steps on one fixed batch: loss "
         + " -> ".join(f"{x:.4f}" for x in losses))
-    return dict(stages=rows, losses=losses)
+    return dict(stages=rows, losses=losses, reasoner_sweep=phase_reasoner_sweep_chain(configs, common, art, ck))
+
+
+def numpy_oracle(samples, ks) -> dict:
+    """The oracle reasoner's metrics, recomputed with a plain loop: per
+    sample the edges ranked by score (stable), an answer found at k when it
+    is the head or tail of one of the top k edges; hit@k and recall@k
+    averaged over the samples."""
+    import numpy as np
+
+    per = {f"answer_{m}@{k}": [] for m in ("hit", "recall") for k in ks}
+    for s in samples:
+        order = np.argsort(-s.edge_scores, kind="stable")
+        heads = s.node_entity_ids[s.edge_head_locals[order]].tolist()
+        tails = s.node_entity_ids[s.edge_tail_locals[order]].tolist()
+        answers = set(int(a) for a in s.answer_entity_ids)
+        for k in ks:
+            seen = set(heads[:k]) | set(tails[:k])
+            found = len(answers & seen) if heads and answers else 0
+            per[f"answer_hit@{k}"].append(1.0 if found else 0.0)
+            per[f"answer_recall@{k}"].append(found / len(answers) if answers and heads else 0.0)
+    return {k: float(np.mean(v)) for k, v in per.items()}
+
+
+def ollama_stub():
+    """A stub of Ollama's ``/api/chat`` on 127.0.0.1 (a thread of this
+    process): it records each request and answers with one fixed JSON
+    answer list; ``(url, requests, server)``, the caller shuts it down."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    seen: list = []
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_POST(self):  # noqa: N802 (http.server API)
+            body = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+            seen.append((self.path, body))
+            payload = json.dumps({"message": {"role": "assistant", "content": '{"answers": ["1"]}'}}).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(payload)))
+            self.end_headers()
+            self.wfile.write(payload)
+
+        def log_message(self, *a):
+            pass
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return f"http://127.0.0.1:{srv.server_address[1]}", seen, srv
+
+
+def offline_token_rule() -> str:
+    """``count_tokens``' rule on this machine: tiktoken needs its encoding
+    file, which it would fetch over the network; with no network the rule
+    is ``len // 4``, so an installed tiktoken is kept from trying."""
+    import importlib.util
+
+    from evi_rag_tpu_torch.eval import prompting
+
+    if "tiktoken" in sys.modules and sys.modules["tiktoken"] is None or importlib.util.find_spec("tiktoken"):
+        sys.modules["tiktoken"] = None  # an import now fails: no download is attempted
+        prompting.token_encoding.cache_clear()
+        return "len // 4 (tiktoken installed, kept from fetching its encoding file)"
+    return "len // 4 (tiktoken not installed)"
+
+
+def phase_reasoner_sweep_chain(configs: str, common: list, art: pathlib.Path, ck: pathlib.Path):
+    """8e, after eval_gflownet: the reasoner over the chain's validation
+    store (oracle, held to ``numpy_oracle``; the mock LLM over triplets, over
+    eval_gflownet's rollouts and over eval_bfs's chains; ollama against a
+    stub on 127.0.0.1), then ``sweep=gflownet_tpe`` with 2 trials on the
+    chain's retriever, each of which must end ``ok``."""
+    from evi_rag_tpu_torch import cli
+    from evi_rag_tpu_torch.eval.artifacts import load_agent_store
+
+    rule = offline_token_rule()
+    store = [f"eval.artifacts_dir={art}", f"gflownet.g_agent_dir={art / 'g_agent'}", "eval.splits=[validation]"]
+    preds = art / "reasoner" / "validation.jsonl"
+    url, seen, srv = ollama_stub()
+    runs = [
+        ("oracle", ["experiment=reasoner_oracle"]),
+        ("mock triplets", ["reasoner=mock"]),
+        ("mock paths (eval_gflownet)", ["experiment=reasoner_paths", "reasoner=mock"]),
+        ("mock paths (eval_bfs)", ["experiment=reasoner_bfs_paths", "reasoner=mock",
+                                   f"reasoner.chains_dir={art / 'eval_bfs'}"]),
+        ("ollama (stub)", ["reasoner=ollama", f"reasoner.ollama_base_url={url}", "reasoner.window_k=[1,10]"]),
+    ]
+    rows = []
+    try:
+        for i, (name, overrides) in enumerate(runs):
+            logs = GFN_DIR / "logs" / f"reasoner_{i}"
+            preds.unlink(missing_ok=True)
+            t = time.perf_counter()
+            rc = cli.main(["reasoner", "--configs-dir", configs, *store, *overrides, f"paths.log_dir={logs}"])
+            m = latest_metrics(logs)
+            if rc != 0:
+                raise AssertionError(f"8e reasoner {name}: rc {rc}")
+            if name == "oracle":
+                want = numpy_oracle(load_agent_store(art / "g_agent" / "validation"), (1, 10, 25, 50, 100))
+                got = {k.split("/", 1)[1]: v for k, v in m.items()}
+                if got.keys() != want.keys() or any(abs(got[k] - want[k]) > 1e-12 for k in want):
+                    raise AssertionError(f"8e reasoner oracle: {got} vs numpy {want}")
+            elif not (preds.exists() and pathlib.Path(str(preds) + ".metrics.json").exists()
+                      and m["validation/results/total"] == len(preds.read_text().splitlines()) > 0):
+                raise AssertionError(f"8e reasoner {name}: no predictions or metrics ({m})")
+            rows.append(dict(run=name, seconds=time.perf_counter() - t, metrics=m))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    if not seen or any(path != "/api/chat" or body["stream"] is not False for path, body in seen):
+        raise AssertionError(f"8e reasoner ollama: {len(seen)} requests to the stub")
+    log("[8e reasoner] " + "; ".join(
+        f"{r['run']} {r['seconds']:.1f} s" + (f" answer_hit@10 {r['metrics']['validation/answer_hit@10']:.4f}"
+                                             if r["run"] == "oracle" else
+                                             f" {int(r['metrics']['validation/results/total'])} records, hit "
+                                             f"{r['metrics']['validation/results/hit']:.4f}") for r in rows)
+        + f" (oracle equal to numpy's; {len(seen)} requests to the stub /api/chat; count_tokens rule: {rule})")
+
+    logs = GFN_DIR / "logs" / "sweep"
+    t = time.perf_counter()
+    rc = cli.main(["sweep", "--configs-dir", configs, *common, "sweep=gflownet_tpe", "sweep.num_trials=2",
+                   f"retriever.ckpt={ck / 'r' / 'best'}", f"paths.log_dir={logs}"])
+    (doc_path,) = sorted(logs.glob("**/sweep.json"))
+    doc = json.loads(doc_path.read_text())
+    statuses = [tr["status"] for tr in doc["trials"]]
+    if rc != 0 or statuses != ["ok", "ok"]:
+        raise AssertionError(f"8e sweep: rc {rc}, trials {[(tr['status'], tr.get('error')) for tr in doc['trials']]}")
+    if not all((doc_path.parent / f"trial_{i}" / "ckpt" / "best" / "meta.json").exists() for i in range(2)):
+        raise AssertionError("8e sweep: a trial wrote no ckpt/best")
+    sweep = dict(seconds=time.perf_counter() - t, trials=[dict(overrides=tr["overrides"], score=tr["score"])
+                                                         for tr in doc["trials"]])
+    log(f"[8e sweep] sweep=gflownet_tpe, 2 trials of train_gflownet on the chain's retriever in "
+        f"{sweep['seconds']:.1f} s, both ok: " + "; ".join(
+            f"lr {tr['overrides']['gflownet.optimizer.learning_rate']:.3g} bc {tr['overrides']['gflownet.bc_weight']} "
+            f"T {tr['overrides']['gflownet.policy_temperature']:.3f} -> best_score {tr['score']:.4f}"
+            for tr in doc["trials"]))
+    return dict(reasoner=rows, sweep=sweep, token_rule=rule)
 
 
 def phase_native():
@@ -1522,17 +1821,10 @@ def phase_built_serve(retriever_ckpt: str):
     """9d: ``seed_stats`` through the CLI on the built split, then ``serve``
     of it with phase 7a's D = 1024 retriever through kernel 3, held to the
     plain-version serve by phase 4's rule."""
-    import collections
-    import functools
-
     import numpy as np
-    import torch
 
     from evi_rag_tpu_torch import cli
     from evi_rag_tpu_torch.data.pipeline import load_retrieval_split
-    from evi_rag_tpu_torch.ops import score_kernels as sk
-    from evi_rag_tpu_torch.serving import _pow2_at_least, project_tables, serve_recall_at_k, serve_split
-    from evi_rag_tpu_torch.train.checkpoint import bundle_from_numpy, export_retriever_features, load_checkpoint
 
     root = BUILD_WORK / "normalized"
     rc = cli.main(["seed_stats", "--configs-dir", str(ROOT / "configs"), "dataset.source=normalized",
@@ -1546,6 +1838,23 @@ def phase_built_serve(retriever_ckpt: str):
     samples, q_emb = load_retrieval_split(root, "validation")
     ent = np.load(root / "embeddings" / "entity_embeddings.npy")
     rel = np.load(root / "embeddings" / "relation_embeddings.npy")
+    return {"seed_stats": stats, "serve": serve_against_plain("9d serve", retriever_ckpt, samples, ent, rel, q_emb,
+                                                             BUILT_RANK)}
+
+
+def serve_against_plain(label: str, retriever_ckpt, samples, ent, rel, q_emb, width: int) -> dict:
+    """``serve_split`` of a split with a retriever checkpoint through kernel
+    3 (launches counted from 0 over one warm pass), held to the plain-version
+    serve by phase 4's rule (``width`` >= the largest bucket)."""
+    import collections
+    import functools
+
+    import numpy as np
+
+    from evi_rag_tpu_torch.ops import score_kernels as sk
+    from evi_rag_tpu_torch.serving import _pow2_at_least, project_tables, serve_recall_at_k, serve_split
+    from evi_rag_tpu_torch.train.checkpoint import bundle_from_numpy, export_retriever_features, load_checkpoint
+
     tree, meta = load_checkpoint(retriever_ckpt)
     exported = export_retriever_features(tree["params"], meta["parity_meta"])
     bundle = {"features": bundle_from_numpy(exported["features"], device="cuda")}
@@ -1557,28 +1866,101 @@ def phase_built_serve(retriever_ckpt: str):
     results, st = serve_split(bundle, samples, **kw)
     launches = sk.per_question_topk.launches
     if launches == 0:
-        raise AssertionError("9d: serve of the built split never launched kernel 3")
+        raise AssertionError(f"{label}: serve never launched kernel 3")
     order = sorted(samples, key=lambda s: s.edge_index.shape[1])
     buckets = collections.Counter(
         max(_pow2_at_least(max(s.edge_index.shape[1] for s in g)), _pow2_at_least(K),
             _pow2_at_least(max(s.num_nodes for s in g) + 1))
         for g in (order[i : i + 16] for i in range(0, len(order), 16)))
-    full, _ = serve_split(bundle, samples, fused_fn=functools.partial(plain_full_ranking, width=BUILT_RANK), **kw)
+    full, _ = serve_split(bundle, samples, fused_fn=functools.partial(plain_full_ranking, width=width), **kw)
     plain, swapped, max_err = check_against_plain(samples, results, full)
     rec_k = serve_recall_at_k(samples, results, [10, 100])
     rec_p = serve_recall_at_k(samples, plain, [10, 100])
     slack = swapped / len(samples)
     for key in rec_k:
         if abs(rec_k[key] - rec_p[key]) > slack:
-            raise AssertionError(f"9d {key}: kernel {rec_k[key]} vs plain {rec_p[key]} (slack {slack})")
+            raise AssertionError(f"{label} {key}: kernel {rec_k[key]} vs plain {rec_p[key]} (slack {slack})")
     edges = np.array([s.edge_index.shape[1] for s in samples])
-    log(f"[9d serve] built split: {len(samples)} questions, edges median {int(np.median(edges))} max {edges.max()}; "
+    log(f"[{label}] {len(samples)} questions, edges median {int(np.median(edges))} max {edges.max()}; "
         f"buckets (M: groups of 16) {dict(sorted(buckets.items()))}; kernel 3 launches {launches} for "
         f"{st.num_groups} groups; {st.queries_per_s:.2f} q/s (scoring {st.scoring_s:.3f} s); vs plain-version serve: "
         f"max score error {max_err:.3e}, near-tie swaps {swapped}/{len(samples)}; recall kernel {rec_k} plain {rec_p}")
-    return {"seed_stats": stats, "serve": dict(launches=launches, groups=st.num_groups, qps=st.queries_per_s,
-                                               buckets=dict(buckets), max_abs_err=max_err, swapped=swapped,
-                                               recall=rec_k, recall_plain=rec_p)}
+    return dict(launches=launches, groups=st.num_groups, qps=st.queries_per_s, buckets=dict(buckets),
+                max_abs_err=max_err, swapped=swapped, recall=rec_k, recall_plain=rec_p)
+
+
+SWEEP_DIR = OUT_DIR / "chip_smoke_sweep"  # phase 10: the run logs stay
+SWEEP_WORK = SWEEP_DIR / "work"           # the trials' checkpoints, removed when phase 10 ends
+SWEEP_TRIALS = 3
+SWEEP_LEAK = 1.10          # a later trial's peak above the first's by more than this factor is a leak
+
+
+def phase_sweep(smi: str, load_split):
+    """10: ``sweep`` (``sweep=retriever_lr``, ``retriever=production``, 3
+    trials of 1 epoch, a constant lr) through the CLI on the card, on phase
+    7a's train split and phase 4's validation split (``load_split``): every
+    trial ``ok``, ``sweep.json``'s best the trial with the highest
+    ``answer/reachability@100``, each trial's wall time and peak memory (a
+    later peak above the first's by more than 10% fails as a leak); then
+    ``serve`` of the best trial's ``ckpt/best`` through kernel 3 under
+    phase 4's rule."""
+    from unittest import mock
+
+    import torch
+
+    from evi_rag_tpu_torch import cli
+
+    dev = torch.device("cuda")
+    train_task = cli.task_train_retriever
+    trials = []
+
+    def measured(cfg, *, run_dir):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        row = dict(start_gib=torch.cuda.memory_allocated(dev) / 2**30)
+        t = time.perf_counter()
+        try:
+            return train_task.__wrapped__(cfg, run_dir=run_dir)
+        finally:
+            torch.cuda.synchronize()
+            row.update(wall_s=time.perf_counter() - t, peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+            trials.append(row)
+
+    measured.__wrapped__ = measured  # task_sweep calls its objective's __wrapped__
+    t = time.perf_counter()
+    with mock.patch.object(cli, "_load_split", load_split), mock.patch.object(cli, "task_train_retriever", measured):
+        rc = cli.main(["sweep", "--configs-dir", str(ROOT / "configs"), "sweep=retriever_lr", "retriever=production",
+                       f"sweep.num_trials={SWEEP_TRIALS}", "retriever.train.max_epochs=1",
+                       "retriever.train.optimizer.schedule=constant", "device=cuda", f"paths.log_dir={SWEEP_WORK}"])
+    wall = time.perf_counter() - t
+    (doc_path,) = sorted(SWEEP_WORK.glob("**/sweep.json"))
+    doc = json.loads(doc_path.read_text())
+    shutil.copy(doc_path, SWEEP_DIR / "sweep.json")
+    statuses = [tr["status"] for tr in doc["trials"]]
+    if rc != 0 or statuses != ["ok"] * SWEEP_TRIALS:
+        raise AssertionError(f"10 sweep: rc {rc}, trials {[(tr['status'], tr.get('error')) for tr in doc['trials']]}")
+    scores = [tr["metrics"]["answer/reachability@100"] for tr in doc["trials"]]
+    first_best = scores.index(max(scores))
+    if doc["best"]["trial"] != first_best or doc["best"]["score"] != scores[first_best]:
+        raise AssertionError(f"10 sweep: best {doc['best']['trial']} but answer/reachability@100 {scores}")
+    leaks = [i for i, tr in enumerate(trials[1:], 1) if tr["peak_gib"] > SWEEP_LEAK * trials[0]["peak_gib"]]
+    if len(trials) != SWEEP_TRIALS or leaks:
+        raise AssertionError(f"10 sweep: trial peaks {trials} (leak in trials {leaks})")
+    for tr, row in zip(doc["trials"], trials):
+        row.update(overrides=tr["overrides"], score=tr["score"])
+    log(f"[10 sweep] sweep=retriever_lr, retriever=production (D = H = 1024, bf16, batch 16), {SWEEP_TRIALS} trials "
+        f"of 1 epoch ({len(load_split(None, 'train')[0])} train questions, constant lr) in {wall:.1f} s, all ok:")
+    for i, row in enumerate(trials):
+        o = row["overrides"]
+        log(f"[10 sweep]   trial {i}: lr {o['retriever.train.optimizer.learning_rate']:.3g} T "
+            f"{o['retriever.train.loss.infonce_temperature']:.3f} dropout {o['retriever.model.dropout_p']} -> "
+            f"answer/reachability@100 {row['score']:.4f}; wall {row['wall_s']:.1f} s, peak {row['peak_gib']:.2f} GiB "
+            f"(allocated at start {row['start_gib']:.3f} GiB)")
+    best_ckpt = doc_path.parent / f"trial_{first_best}" / "ckpt" / "best"
+    samples, ent, rel, q_emb = load_split(None, "validation")
+    serve = serve_against_plain("10 serve", best_ckpt, samples, ent, rel, q_emb, FULL_RANK)
+    shutil.rmtree(SWEEP_WORK)  # 3 trials' checkpoints with optimizer state
+    return dict(nvidia_smi=smi, wall_s=wall, trials=trials, best=first_best, serve=serve)
 
 
 def wgmma_ptxas(sources) -> list[str]:
@@ -1771,9 +2153,11 @@ def main() -> int:
     cli_metrics = phase_cli()
     pooled = phase_pooled(bundle_np)
     train = phase_train(smi)
-    gflownet = phase_gflownet(smi, train["retriever_ckpt"])
+    load_split = realistic_loader()
+    gflownet = phase_gflownet(smi, train["retriever_ckpt"], load_split)
     native_bfs = phase_native()
     build = phase_build_data(smi, train["retriever_ckpt"])
+    sweep = phase_sweep(smi, load_split)
 
     rep = next(r for r in rows if r["M"] == REPORT_M)
     kernels = [{
@@ -1786,6 +2170,7 @@ def main() -> int:
         "warmup_launches": serve["warmup_launches"],
         "launches_serving_trained_ckpt": train["serve"]["launches"],
         "launches_serving_built_split": build["serve"]["launches"],
+        "launches_serving_sweep_best": sweep["serve"]["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": rep["ms"],
         "plain_ms": rep["plain_ms"],
@@ -1818,7 +2203,8 @@ def main() -> int:
             "shape": f"B={POOLED_B} M={POOLED_M} D={D} H={H} S={S} k={K}",
         })
     details = dict(nvidia_smi=smi, build_s=build_s, kernel=rows, serve=serve, cli=cli_metrics,
-                   pooled=pooled, train=train, gflownet=gflownet, native_bfs=native_bfs, build=build, kernels=kernels,
+                   pooled=pooled, train=train, gflownet=gflownet, native_bfs=native_bfs, build=build, sweep=sweep,
+                   kernels=kernels,
                    wall_s=time.perf_counter() - t_all)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(details, indent=2, default=str))
     log(f"[done] wall {details['wall_s']:.1f} s; details in chiprun_out/chip_smoke.json")

@@ -1,6 +1,7 @@
-"""Command line of the port: ``build``, ``train_retriever``, ``eval_retriever``,
-``train_gflownet``, ``eval_gflownet``, ``bfs_chains``, ``serve`` and
-``seed_stats``.
+"""Command line of the port: all ten tasks of the JAX package, ``build``,
+``train_retriever``, ``eval_retriever``, ``train_gflownet``,
+``eval_gflownet``, ``bfs_chains``, ``reasoner``, ``sweep``, ``seed_stats``
+and ``serve``.
 
 Usage::
 
@@ -15,13 +16,17 @@ the run dir: ``train_retriever`` writes ``ckpt/best`` and ``ckpt/last``
 ``train_gflownet`` trains on those stores (``gflownet.g_agent_dir``) and
 writes ``ckpt/best`` (``gflownet.ckpt_dir``); ``eval_gflownet`` writes
 ``eval_gflownet/<split>.jsonl``; ``bfs_chains`` writes ``eval_bfs/<split>.jsonl``
-from the agent stores; ``seed_stats`` reports one-hop seed statistics;
+from the agent stores; ``reasoner`` scores the agent stores with the oracle
+or a chat backend and writes ``reasoner/<split>.jsonl``; ``sweep`` runs
+trials of ``train_retriever`` or ``train_gflownet`` into ``trial_<i>/`` and
+writes ``sweep.json``; ``seed_stats`` reports one-hop seed statistics;
 ``serve`` writes ``<split>_serve.jsonl``, ``<split>.manifest.json`` and
 ``metrics.json``.  ``retriever.ckpt`` and ``gflownet.ckpt`` name checkpoints in the port's
 format (``train/checkpoint.py``), such as ``train_retriever``'s ``ckpt/best``.
 ``dataset.source`` is ``synthetic`` or ``normalized`` (a materialized split
 from ``build``).  ``device=cpu`` runs on the CPU; the default is the GPU
-(``seed_stats`` and ``bfs_chains`` run on the host only).
+(``seed_stats``, ``bfs_chains`` and ``reasoner`` run on the host only;
+``sweep`` passes ``device`` to every trial).
 """
 
 from __future__ import annotations
@@ -952,6 +957,141 @@ def task_bfs_chains(cfg: dict, *, run_dir: pathlib.Path) -> dict[str, Any]:
 
 
 @task_wrapper
+def task_reasoner(cfg: dict, *, run_dir: pathlib.Path) -> dict[str, Any]:
+    """The reasoner over each split's g_agent store (``gflownet.g_agent_dir``):
+    ``oracle`` mode scores the ranked edges' answer hit/recall@k; ``llm``
+    mode builds prompts from the ranked triplets or from candidate chains
+    (``prompt_source=paths``: ``eval_gflownet`` rollouts or ``eval_bfs``
+    chains), asks the chat backend, and writes
+    ``reasoner/<split>.jsonl`` and its ``.metrics.json`` under
+    ``eval.artifacts_dir``.  Host only."""
+    from evi_rag_tpu_torch.eval.artifacts import load_agent_store
+    from evi_rag_tpu_torch.eval.llm_client import LLMConfig, init_llm
+    from evi_rag_tpu_torch.eval.reasoner import ReasonerSettings, build_triplet_records, run_reasoner
+
+    r = cfg.get("reasoner", {})
+    mode = str(r.get("mode", "oracle"))
+    prompt_source = str(r.get("prompt_source", "triplets"))  # triplets | paths
+    splits = list(cfg.get("eval", {}).get("splits", ["test"]))
+    artifacts_dir = pathlib.Path(cfg.get("eval", {}).get("artifacts_dir", run_dir / "artifacts"))
+    id2e, id2r = _vocab_maps(cfg)
+    settings = ReasonerSettings(
+        window_k=tuple(int(k) for k in r.get("window_k", DEFAULT_K_GRID)),
+        token_budget=r.get("token_budget"),
+        path_limit=int(r.get("path_limit", 10)),
+    )
+    all_metrics: dict[str, Any] = {}
+    for split in splits:
+        samples = load_agent_store(pathlib.Path(cfg["gflownet"]["g_agent_dir"]) / split)
+        if mode == "oracle":
+            oracle_inputs = []
+            for s in samples:
+                order = np.argsort(-s.edge_scores, kind="stable")
+                oracle_inputs.append({
+                    "head_entity_ids": s.node_entity_ids[s.edge_head_locals[order]],
+                    "tail_entity_ids": s.node_entity_ids[s.edge_tail_locals[order]],
+                    "answer_entity_ids": s.answer_entity_ids,
+                })
+            m = run_reasoner([], mode="oracle", oracle_inputs=oracle_inputs,
+                             k_values=[int(k) for k in r.get("k_values", (1, 10, 25, 50, 100))])
+        else:
+            mock_resp = r.get("mock_response", '{"answers": []}')
+            if not isinstance(mock_resp, str):
+                mock_resp = json.dumps(mock_resp)  # YAML may parse the JSON into a dict
+            llm = init_llm(LLMConfig(
+                model_name=str(r.get("model_name", "mock")),
+                backend=str(r.get("backend", "mock")),
+                temperature=float(r.get("temperature", 0.0)),
+                max_tokens=int(r.get("max_tokens", 1024)),
+                ollama_base_url=str(r.get("ollama_base_url", "http://localhost:11434")),
+                ollama_timeout=float(r.get("ollama_timeout", 120.0)),
+                mock_response=mock_resp,
+            ))
+            # Question text + gold answers from the normalized questions parquet.
+            questions = _question_lookup(cfg)
+            records = []
+            if prompt_source == "paths":
+                from evi_rag_tpu_torch.eval.artifacts import ROLLOUT_ARTIFACT, validate_manifest
+                from evi_rag_tpu_torch.eval.reasoner import build_path_records
+
+                chains_dir = pathlib.Path(r.get("chains_dir", artifacts_dir / "eval_gflownet"))
+                validate_manifest(chains_dir, artifact=str(r.get("chains_artifact", ROLLOUT_ARTIFACT)), split=split)
+                by_id: dict[str, list] = {}
+                with (chains_dir / f"{split}.jsonl").open() as f:
+                    for line in f:
+                        rec = json.loads(line)
+                        by_id[rec["sample_id"]] = rec.get("candidate_chains", [])
+                for s in samples:
+                    qtext, golds = questions.get(s.sample_id, (s.sample_id, None))
+                    golds = golds or [id2e.get(int(a), str(a)) for a in s.answer_entity_ids]
+                    records.append(build_path_records(
+                        sample_id=s.sample_id, question_text=qtext, gold_answers=golds,
+                        chains=by_id.get(s.sample_id, []), settings=settings,
+                        pair_start_local=s.pair_start_local, pair_answer_local=s.pair_answer_local,
+                        pair_shortest_len=s.pair_shortest_len,
+                    ))
+            else:
+                for s in samples:
+                    qtext, golds = questions.get(s.sample_id, (s.sample_id, None))
+                    golds = golds or [id2e.get(int(a), str(a)) for a in s.answer_entity_ids]
+                    records.extend(build_triplet_records(
+                        s, question_text=qtext, gold_answers=golds,
+                        id2entity=id2e or {int(i): str(i) for i in s.node_entity_ids},
+                        id2relation=id2r or {int(i): str(i) for i in np.unique(s.edge_relations)},
+                        settings=settings,
+                    ))
+            m = run_reasoner(records, mode="llm", llm=llm,
+                             output_path=artifacts_dir / "reasoner" / f"{split}.jsonl")
+        all_metrics.update({f"{split}/{k}": v for k, v in m.items()})
+    save_metrics_json(run_dir / "metrics.json", all_metrics)
+    return all_metrics
+
+
+@task_wrapper
+def task_sweep(cfg: dict, *, run_dir: pathlib.Path) -> dict[str, Any]:
+    """Hyperparameter search over a training task: ``sweep.task`` selects
+    ``train_retriever`` (default) or ``train_gflownet``.  Trial i runs in
+    ``trial_<i>/`` (its checkpoints under ``trial_<i>/ckpt`` unless the
+    config names a ckpt_dir); ``sweep.json`` records every trial, a failed
+    one with its error."""
+    import gc
+
+    from evi_rag_tpu_torch.train.sweep import run_sweep
+
+    sw = cfg.get("sweep", {})
+    space = sw.get("space")
+    if not space:
+        raise ConfigError("sweep.space is required")
+    task_name = str(sw.get("task", "train_retriever"))
+    objectives = {"train_retriever": task_train_retriever, "train_gflownet": task_train_gflownet}
+    if task_name not in objectives:
+        raise ConfigError(f"sweep.task must be one of {sorted(objectives)}; got {task_name!r}")
+    task_fn = objectives[task_name]
+
+    def objective(trial_cfg: dict) -> dict[str, float]:
+        trial_dir = run_dir / f"trial_{len(list(run_dir.glob('trial_*')))}"
+        trial_dir.mkdir(parents=True, exist_ok=True)
+        try:
+            return task_fn.__wrapped__(trial_cfg, run_dir=trial_dir)
+        finally:
+            gc.collect()  # the trial's model and tables go before the next trial builds its own
+
+    result = run_sweep(
+        cfg, space, objective,
+        monitor=str(sw.get("monitor", "answer/reachability@100")),
+        mode=str(sw.get("mode", "max")),
+        strategy=str(sw.get("strategy", "random")),
+        num_trials=int(sw.get("num_trials", 5)),
+        seed=int(sw.get("seed", 0)),
+        out_path=run_dir / "sweep.json",
+    )
+    best = result["best"] or {}
+    metrics = {"best_score": best.get("score"), "num_trials": len(result["trials"])}
+    save_metrics_json(run_dir / "metrics.json", metrics)
+    return metrics
+
+
+@task_wrapper
 def task_seed_stats(cfg: dict, *, run_dir: pathlib.Path) -> dict[str, Any]:
     """One-hop seed diagnostics: per-seed incident-edge counts and positive
     ratios with percentiles.  Host only."""
@@ -987,8 +1127,10 @@ TASKS: dict[str, Callable] = {
     "train_gflownet": task_train_gflownet,
     "eval_gflownet": task_eval_gflownet,
     "bfs_chains": task_bfs_chains,
-    "serve": task_serve,
+    "reasoner": task_reasoner,
+    "sweep": task_sweep,
     "seed_stats": task_seed_stats,
+    "serve": task_serve,
 }
 
 

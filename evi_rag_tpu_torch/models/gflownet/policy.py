@@ -56,6 +56,19 @@ class PolicyStepTensors:
         return PolicyStepTensors(**{f.name: None if getattr(self, f.name) is None else getattr(self, f.name)[t]
                                     for f in dataclasses.fields(self)})
 
+    def flat(self) -> "PolicyStepTensors":
+        """All T steps as one step over T * E rows (step t's edge rows at
+        t * E ...), for ``apply_precomputed`` with segment ids offset by
+        t * G; ``drop2_scale`` (the same value at every step) becomes a
+        scalar."""
+        def fold(x: torch.Tensor) -> torch.Tensor:
+            return x.reshape((x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))
+
+        return PolicyStepTensors(
+            k=fold(self.k), v=fold(self.v), p_edge=fold(self.p_edge), sum_e=fold(self.sum_e),
+            sumsq_e=fold(self.sumsq_e), drop2=None if self.drop2 is None else fold(self.drop2),
+            drop2_scale=None if self.drop2_scale is None else self.drop2_scale[0])
+
 
 def make_policy_draws(num_steps: int, num_edges: int, hidden: int, dropout: float, *,
                       generator: torch.Generator | None, device) -> dict[str, torch.Tensor]:
@@ -176,8 +189,10 @@ class GFlowNetEdgePolicy(nn.Module):
         mu = (a.sum(-1)[eb] + step.sum_e) / (2.0 * h)
         var = ((a * a).sum(-1)[eb] + step.sumsq_e) / (2.0 * h) - mu * mu
         inv = torch.rsqrt(var + 1e-5)                      # edge_head_norm eps
-        u = gamma @ w0
-        const = beta @ w0 + b0
+        # Row-vector products: ``@`` on a 1-D operand squeezes the matmul's
+        # result in place, which a selective checkpoint (remat "dots") refuses.
+        u = (gamma[None] @ w0)[0]
+        const = (beta[None] @ w0)[0] + b0
         h_pre = (gather_rows(p_state, eb) + step.p_edge.float() - mu[:, None] * u[None, :]) * inv[:, None] \
             + const[None, :]
         hh = gelu_exact(h_pre.to(cd))

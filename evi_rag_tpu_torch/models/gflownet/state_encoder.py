@@ -24,7 +24,7 @@ from evi_rag_tpu_torch.models.dde import build_node_struct_features
 from evi_rag_tpu_torch.models.gflownet.env import EnvState
 from evi_rag_tpu_torch.models.retriever import Dense, LayerNorm
 from evi_rag_tpu_torch.ops.nnfn import gelu_exact
-from evi_rag_tpu_torch.ops.segment import gather_rows, segment_mean
+from evi_rag_tpu_torch.ops.segment import gather_rows, segment_layout, sorted_segment_mean
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,18 +77,30 @@ class StateEncoder(nn.Module):
 
     def _tokens(self, cache: StateEncoderCache, batch: AgentBatch, active: torch.Tensor, counts: torch.Tensor,
                 action_hidden: torch.Tensor) -> torch.Tensor:
+        """Pre-norm tokens [S, G, H] of S stacked env states (``active`` [S, N],
+        ``counts`` [S, G], ``action_hidden`` [S, G, H]): the S states' masked
+        node means are one segment mean over S * G segments (state s's node
+        rows keep their graph's id offset by s * G)."""
         gb = batch.graph
-        g = gb.num_graphs
-        active = active & gb.node_mask
+        s, g, n = active.shape[0], gb.num_graphs, gb.num_nodes
+        ids = gb.node_batch
+        if s > 1:
+            ids = (ids.long()[None] + g * torch.arange(s, device=ids.device)[:, None]).reshape(-1)
+        order, lengths = segment_layout(ids, s * g, mask=(active & gb.node_mask[None]).reshape(-1))
+        rows = order if s == 1 else order % n
+
+        def mean(table: torch.Tensor) -> torch.Tensor:
+            return sorted_segment_mean(gather_rows(table, rows), lengths).reshape(s, g, -1)
+
         remaining = torch.clamp(self.max_steps - counts, 0, self.max_steps)
-        tokens = (segment_mean(cache.node_tokens, gb.node_batch, g, mask=active) + cache.question_tokens
-                  + self.step_embeddings(remaining) + action_hidden)
+        tokens = mean(cache.node_tokens) + cache.question_tokens + self.step_embeddings(remaining) + action_hidden
         if self.use_state_dde:
-            tokens = tokens + segment_mean(cache.node_struct_tokens, gb.node_batch, g, mask=active)
+            tokens = tokens + mean(cache.node_struct_tokens)
         return tokens
 
     def encode_state(self, cache: StateEncoderCache, state: EnvState, batch: AgentBatch) -> torch.Tensor:
-        return self.norm(self._tokens(cache, batch, state.active_nodes, state.step_counts, state.action_hidden))
+        return self.norm(self._tokens(cache, batch, state.active_nodes[None], state.step_counts[None],
+                                      state.action_hidden[None])[0])
 
     def encode_states_batched(
         self,
@@ -100,11 +112,8 @@ class StateEncoder(nn.Module):
         action_hidden_seq: torch.Tensor,  # [T, G, H] pre-step action-history means
     ) -> torch.Tensor:
         """All T per-step state tokens, [T, G, H]: ``encode_state`` over the
-        stacked env-state snapshots."""
-        return self.norm(torch.stack([
-            self._tokens(cache, batch, active_seq[t], counts_seq[t], action_hidden_seq[t])
-            for t in range(active_seq.shape[0])
-        ]))
+        stacked env-state snapshots, in one pass over the step axis."""
+        return self.norm(self._tokens(cache, batch, active_seq, counts_seq, action_hidden_seq))
 
 
 class GFlowNetEstimator(nn.Module):

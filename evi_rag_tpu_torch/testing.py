@@ -12,7 +12,10 @@ untrained parameters' by more than ``SMALL_TRAIN_MIN_GAIN``.
 
 ``card_vs_cpu_step`` / ``gfn_card_vs_cpu_step`` run one f32 train step of
 the retriever / the GFlowNet on the card and on the CPU from the same
-parameters, batch and draws.
+parameters, batch and draws.  ``sts_vs_canonical`` holds the GFlowNet's
+sample-then-score rollout to the canonical step loop on one batch and one
+set of draws; ``gumbel_margin`` is its diagnostic for a graph whose action
+differs.
 
 ``pqt_digest`` runs ``per_question_topk`` on a fixed input made with numpy
 from seeds and hashes its output; ``PQT_DIGEST`` pins that hash for the
@@ -259,6 +262,98 @@ def gfn_card_vs_cpu_step(hidden: int = 64, questions: int = 4, seed: int = 0,
             "grad_ratio": grad_ratio, "zero_grad_leaves": sorted(k for k, v in grad_max.items() if v == 0.0),
             "min_leaf_grad": min(grad_max.values()), "param_diff": param_diff,
             "edges": int(batch.graph.edge_mask.sum())}
+
+
+STS_TOL = dict(rtol=1e-4, atol=1e-5)        # rollout outputs, sample-then-score vs the canonical loop
+STS_LOSS_TOL = dict(rtol=1e-3, atol=1e-4)   # one step's loss (tests/test_gflownet_sts.py's bar)
+STS_MARGIN = 1e-5                           # a differing action needs a near tie: margin <= this x max(1, |score|)
+
+
+def _tol_ratio(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> float:
+    """max |got - want| / (atol + rtol |want|): <= 1 within the tolerance."""
+    if got.numel() == 0:
+        return 0.0
+    return float(((got.double() - want.double()).abs() / (atol + rtol * want.double().abs())).max())
+
+
+def sts_vs_canonical(cfg, modules, bundle, batch, draws: dict, *, bc_weight: float = 0.5) -> dict:
+    """One train-mode ``rollout_losses`` of the canonical loop and one of
+    the sample-then-score rollout (the same modules, batch on the modules'
+    device and draws of the replicated batch).  Returns the graphs whose
+    actions differ with each one's Gumbel margin at its first differing
+    step (``gumbel_margin``), the worst ratio to ``STS_TOL`` of
+    ``log_pf_steps``, ``state_emb_seq`` and the BC statistics over the
+    graphs that agree, both losses and the loss's ratio to
+    ``STS_LOSS_TOL``."""
+    import dataclasses
+    from unittest import mock
+
+    from evi_rag_tpu_torch.models.gflownet import actor
+    from evi_rag_tpu_torch.train import gflownet_trainer as gt
+
+    runs = {}
+    for sts in (False, True):
+        seen = {}
+
+        def recording(**kw):
+            seen["kw"], seen["ro"] = kw, actor.rollout(**kw)
+            return seen["ro"]
+
+        c = dataclasses.replace(cfg, sample_then_score=sts)
+        with mock.patch.object(gt, "rollout", recording), torch.no_grad():
+            loss, _ = gt.rollout_losses(modules, bundle, batch, c, num_rollouts=c.num_train_rollouts,
+                                        bc_weight=bc_weight, temperature=c.policy_temperature, train=True,
+                                        draws=draws)
+        runs[sts] = (loss.item(), seen["ro"], seen["kw"])
+    (loss_c, ro_c, kw_c), (loss_s, ro_s, _) = runs[False], runs[True]
+    a_c, a_s = ro_c["actions_seq"], ro_s["actions_seq"]
+    same = (a_c == a_s).all(dim=1)
+    differing = []
+    for gi in torch.nonzero(~same).flatten().tolist():
+        step = int(torch.nonzero(a_c[gi] != a_s[gi])[0])
+        margin, score = gumbel_margin(kw_c, a_c, gi, step)
+        differing.append(dict(graph=gi, step=step, canonical=int(a_c[gi, step]), sts=int(a_s[gi, step]),
+                              margin=margin, score=score,
+                              near_tie=margin <= STS_MARGIN * max(1.0, abs(score))))
+    ratios = {}
+    for k in ("log_pf_steps", "state_emb_seq", "bc_loss_per_graph", "bc_steps_per_graph", "log_pf"):
+        ratios[k] = _tol_ratio(ro_s[k][same], ro_c[k][same], **STS_TOL)
+    return dict(graphs=int(same.numel()), differing=differing, ratios=ratios, loss_canonical=loss_c,
+                loss_sts=loss_s, loss_ratio=_tol_ratio(torch.tensor(loss_s), torch.tensor(loss_c), **STS_LOSS_TOL),
+                acting_steps=int((a_c >= 0).sum()))
+
+
+def gumbel_margin(kw: dict, actions: torch.Tensor, graph: int, step: int) -> tuple[float, float]:
+    """(margin, best score): the gap between the two best Gumbel scores
+    (normalised log-probs + Gumbel noise over the graph's valid edges and
+    STOP) of ``graph`` at ``step`` of the canonical loop, on the trajectory
+    ``actions`` [G, T] replayed up to that step; ``kw`` are the canonical
+    ``actor.rollout``'s keyword arguments."""
+    from evi_rag_tpu_torch.models.gflownet import actor
+    from evi_rag_tpu_torch.models.gflownet.env import candidate_edge_masks, env_reset
+
+    policy, enc, batch, embed, cfg = kw["policy"], kw["state_encoder"], kw["batch"], kw["embed"], kw["config"]
+    draws, gb = kw["draws"], kw["batch"].graph
+    eb, g = gb.edge_batch, gb.num_graphs
+    with torch.no_grad():
+        tokens = embed.edge_tokens.float()
+        cache = enc.precompute(batch, node_tokens=embed.node_tokens.float(), question_tokens=embed.question_tokens.float())
+        st = policy.precompute_steps(tokens, cfg.num_steps, train=kw["train"], keep_edge=draws.get("keep_edge"),
+                                     keep_head=draws.get("keep_head"))
+        state = env_reset(batch, max_steps=cfg.max_steps, hidden_dim=tokens.shape[1], stop_on_answer=cfg.stop_on_answer)
+        for t in range(step + 1):
+            fwd, bwd = candidate_edge_masks(state, batch, max_steps=cfg.max_steps)
+            valid = (fwd | bwd) & ~state.used_edge_mask
+            if t == step:
+                el, sl, _ = policy.apply_precomputed(st.at(t), enc.encode_state(cache, state, batch), eb, valid)
+                lp_e, lp_s, _ = actor.log_probs_edges(el, sl, eb, valid, g, cfg.policy_temperature)
+                mine = valid & (eb.long() == graph)
+                scores = torch.cat([(lp_e + actor._gumbel(draws["uniform_edge"][t]))[mine],
+                                    (lp_s + actor._gumbel(draws["uniform_stop"][t]))[graph:graph + 1]])
+                top = torch.topk(scores.double(), min(2, scores.numel())).values
+                return (float(top[0] - top[1]) if top.numel() > 1 else float("inf")), float(top[0])
+            state = actor.advance(state, batch, actions[:, t].to(torch.int32), tokens, t, cfg)
+    raise AssertionError("unreachable")
 
 
 # --------------------------------------------------------------------------- #

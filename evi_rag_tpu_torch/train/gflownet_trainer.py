@@ -36,7 +36,7 @@ from torch.func import functional_call
 from evi_rag_tpu_torch.data.feeder import prefetch
 from evi_rag_tpu_torch.eval.metrics import MetricAccumulator
 from evi_rag_tpu_torch.models.batches import AgentBatch, EmbedTables, materialize_agent_batch, replicate_agent_batch
-from evi_rag_tpu_torch.models.gflownet.actor import ActorConfig, check_actor_config, rollout
+from evi_rag_tpu_torch.models.gflownet.actor import ActorConfig, rollout
 from evi_rag_tpu_torch.models.gflownet.embedder import EmbedOutputs, apply_score_bonus, embed_agent_batch_frozen
 from evi_rag_tpu_torch.models.gflownet.policy import GFlowNetEdgePolicy
 from evi_rag_tpu_torch.models.gflownet.reward import RewardConfig, compute_reward
@@ -121,7 +121,6 @@ class GFlowNetModules(nn.Module):
 
 
 def build_modules(cfg: GFlowNetConfig) -> GFlowNetModules:
-    check_actor_config(cfg.actor)
     return GFlowNetModules(cfg)
 
 

@@ -1,5 +1,7 @@
-"""The hand-written kernels on the card against their plain versions, and
-the build's gte encoder and native BFS library on the card's machine.
+"""The hand-written kernels on the card against their plain versions, the
+training steps and the GFlowNet's sample-then-score and "dots" remat on the
+card, and the build's gte encoder and native BFS library on the card's
+machine; one test (the port's task list) needs no card.
 
 These tests need an NVIDIA GPU (the kernels have no CPU mode): they carry the
 ``cuda`` marker and skip without one.  They import no JAX, so they run on the
@@ -296,6 +298,97 @@ def test_gflownet_step_on_the_card_matches_the_cpu(cuda):
     assert res["loss_rel"] <= 1e-5, res
     assert res["grad_ratio"] <= 1.0, res
     assert res["param_diff"] <= 1e-6, res
+
+
+def _gfn_small(dev, hidden=64, dropout=0.1, seed=0):
+    """(cfg, modules with perturbed parameters, bundle, batch, draws) of a
+    small GFlowNet step on ``dev`` (4 graphs, 2 rollouts, BC on)."""
+    from evi_rag_tpu_torch.models.batches import replicate_agent_batch
+    from evi_rag_tpu_torch.models.gflownet.actor import make_rollout_draws
+    from evi_rag_tpu_torch.ops.graph import batch_to
+    from evi_rag_tpu_torch.testing import agent_inputs, random_bundle
+    from evi_rag_tpu_torch.train import gflownet_trainer as gt
+
+    cfg = gt.GFlowNetConfig(hidden_dim=hidden, max_steps=3, num_train_rollouts=2, bc_weight=0.5, dropout=dropout)
+    batch = batch_to(agent_inputs(hidden, 4, seed), dev)
+    modules = gt.build_modules(cfg)
+    gt.init_gflownet_params(cfg, modules, seed=seed, device=dev)
+    noise = torch.Generator().manual_seed(seed + 7)
+    with torch.no_grad():
+        for _, p in modules.named_parameters():
+            p.add_(0.3 * torch.randn(p.shape, generator=noise).to(dev))
+    draws = make_rollout_draws(cfg.actor, replicate_agent_batch(batch, 2), hidden_dim=hidden, dropout=dropout,
+                               train=True, sample=True, generator=torch.Generator(device=dev).manual_seed(seed))
+    return cfg, modules, gt.bundle_on(random_bundle(hidden, seed), dev), batch, draws
+
+
+def test_sample_then_score_matches_the_canonical_loop_on_the_card(cuda):
+    """The two-pass rollout against the step loop at H = 64 (dropout 0.1,
+    the same draws): actions equal (or a near tie), log-probs, state
+    embeddings and BC statistics within rtol 1e-4 / atol 1e-5, the loss
+    within rtol 1e-3 / atol 1e-4 (``testing.sts_vs_canonical``)."""
+    from evi_rag_tpu_torch.testing import sts_vs_canonical
+
+    res = sts_vs_canonical(*_gfn_small(cuda))
+    assert all(d["near_tie"] for d in res["differing"]) and len(res["differing"]) <= 1, res
+    assert max(res["ratios"].values()) <= 1.0 and res["loss_ratio"] <= 1.0, res
+    assert res["acting_steps"] > 0
+
+
+@pytest.mark.parametrize("sts", [False, True], ids=["canonical", "sts"])
+def test_dots_remat_gradients_match_no_remat_on_the_card(cuda, sts):
+    """``remat_policy="dots"`` on the card: the same loss bit for bit and
+    gradients within rtol 1e-4 / atol 1e-6 of the step without remat."""
+    import dataclasses
+
+    from evi_rag_tpu_torch.train import gflownet_trainer as gt
+
+    cfg, modules, bundle, batch, draws = _gfn_small(cuda)
+    out = []
+    for remat in (False, "dots"):
+        c = dataclasses.replace(cfg, sample_then_score=sts, remat_policy=remat)
+        modules.zero_grad(set_to_none=True)
+        loss, _ = gt.rollout_losses(modules, bundle, batch, c, num_rollouts=2, bc_weight=0.5, temperature=1.0,
+                                    train=True, draws=draws)
+        loss.backward()
+        out.append((loss.item(), {n: p.grad.detach().clone() for n, p in modules.named_parameters()
+                                  if p.grad is not None}))
+    assert out[1][0] == out[0][0]
+    assert out[0][1].keys() == out[1][1].keys() and out[0][1]
+    for name, g in out[0][1].items():
+        torch.testing.assert_close(out[1][1][name], g, rtol=1e-4, atol=1e-6, msg=name)
+
+
+def test_profiling_hooks_on_the_card(cuda, tmp_path):
+    """``device_memory_stats`` gives JAX's byte keys from the allocator;
+    ``trace`` records the card's kernels inside an ``annotate`` range (with
+    its NVTX range)."""
+    from evi_rag_tpu_torch.utils.profiling import annotate, device_memory_stats, trace
+
+    x = torch.ones(1024, 1024, device=cuda)
+    stats = device_memory_stats(cuda)
+    assert stats["bytes_in_use"] >= x.numel() * 4 and stats["peak_bytes_in_use"] >= stats["bytes_in_use"]
+    with trace(tmp_path) as prof:
+        with annotate("card_span"):
+            (x @ x).sum().item()
+    assert (tmp_path / "trace.json").exists()
+    assert any(e.key == "card_span" for e in prof.key_averages())
+
+
+def test_port_runs_every_task_of_the_jax_cli():
+    """The port's ``TASKS`` has exactly the JAX package's ten task names
+    (read from ``evi_rag_tpu/cli.py``'s source: the card's machine has no
+    JAX to import it)."""
+    import ast
+    import pathlib
+
+    from evi_rag_tpu_torch.cli import TASKS
+
+    tree = ast.parse((pathlib.Path(__file__).resolve().parents[1] / "evi_rag_tpu" / "cli.py").read_text())
+    (node,) = [n for n in tree.body if isinstance(n, ast.AnnAssign) and getattr(n.target, "id", None) == "TASKS"]
+    jax_tasks = [ast.literal_eval(k) for k in node.value.keys]
+    assert len(jax_tasks) == 10
+    assert sorted(TASKS) == sorted(jax_tasks)
 
 
 def test_gte_on_the_card_matches_the_cpu(cuda):

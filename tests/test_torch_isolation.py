@@ -3,8 +3,9 @@
 * No file of ``evi_rag_tpu_torch/`` and not ``chip_smoke.py`` imports JAX,
   flax, optax, orbax or anything of ``evi_rag_tpu`` (an AST scan, so lazy
   imports inside functions count too).
-* ``pyarrow``, ``transformers`` and ``safetensors`` (absent on the card's
-  machine) are imported only inside the functions that need them.
+* ``pyarrow``, ``transformers``, ``safetensors``, ``tiktoken``, ``openai``
+  and ``vllm`` (absent on the card's machine, or optional backends) are
+  imported only inside the functions that need them.
 * The default device is CUDA: with no GPU and no explicit CPU request the
   entry points raise instead of running on the CPU.
 """
@@ -18,7 +19,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "evi_rag_tpu")
-LAZY = ("pyarrow", "transformers", "safetensors")
+LAZY = ("pyarrow", "transformers", "safetensors", "tiktoken", "openai", "vllm")
 
 
 def _port_files():
@@ -182,12 +183,13 @@ def test_gflownet_entry_points_raise_without_gpu(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("knob", ["sample_then_score", "remat_dots", "stacked"])
 def test_unported_gflownet_knobs_raise(knob):
-    """The two-pass rollout, the 'dots' remat policy and stacked
-    (data-parallel) agent batches are not ported: they raise."""
+    """Stacked (data-parallel) agent batches are not ported: they raise.
+    The two-pass rollout and the 'dots' remat policy are ported: their
+    configs build (``tests/test_torch_gflownet_sts.py`` holds them to JAX)."""
     import dataclasses
 
     from evi_rag_tpu_torch.models.batches import AgentBatch
-    from evi_rag_tpu_torch.train.gflownet_trainer import GFlowNetConfig, build_modules, rollout_losses
+    from evi_rag_tpu_torch.train.gflownet_trainer import GFlowNetConfig, GFlowNetModules, build_modules, rollout_losses
 
     cfg = GFlowNetConfig(hidden_dim=8)
     if knob == "stacked":
@@ -198,5 +200,5 @@ def test_unported_gflownet_knobs_raise(knob):
         return
     cfg = dataclasses.replace(cfg, **({"sample_then_score": True} if knob == "sample_then_score"
                                       else {"remat_policy": "dots"}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_modules(cfg)
+    assert isinstance(build_modules(cfg), GFlowNetModules)
+    assert cfg.actor.sample_then_score or cfg.actor.remat_policy == "dots"
