@@ -108,7 +108,30 @@ Phases, each printed as it runs:
    highest ``answer/reachability@100``, each trial's wall time and peak
    memory (a later peak 10% above the first's fails as a leak), then
    ``serve`` of the best trial's ``ckpt/best`` through kernel 3 under phase
-   4's rule.
+   4's rule;
+11. the multi-device paths, on one card standing in for a mesh (``[cuda:0]
+   * 4`` beside ``make_mesh()``; the shards run one after another, so no
+   number is a multi-card speed), each sub-phase's wall time printed.  11a:
+   ``build_triple_index_sharded`` from a 4,194,304 x 1024 f32 entity table
+   (16 GiB), 1,024 relations, 131,072 candidates, held to
+   ``build_triple_index`` (rtol 1e-5 / atol 1e-6): seconds and peak memory
+   of each.  11b: that index in bf16 through ``query_topk_sharded_fused``
+   (kernel 2 once per shard; 128 queries, k = 100) held to the unsharded
+   kernel (values within 1e-5, or the near-tie rule), ms per pass and
+   launches per pass, and ``query_topk_sharded`` (f32, 8 queries) held to
+   ``query_topk``.  11c: kNN at ``bench.py:353``'s shape (262,144 x 1024,
+   64 queries, k = 100, cosine, bf16) one-shot, chunked, approx and over 4
+   shards, held to an f32 brute force (approx: overlap >= 0.8 k), q/s.
+   11d: phase 4's split through ``serve_split(mesh=...)`` over
+   ``make_mesh()`` and ``[cuda:0] * 2``, kernel 3 on every entry, held to
+   phase 4's serve and its plain full rankings: q/s, launches by device.
+   11e: 2 ranks spawned with the ``EVI_*`` variables (the backend and the
+   cards printed): one f32 step at D = H = 256 and one stacked GFlowNet step
+   at hidden 1024, the ranks bit for bit equal and held to the
+   single-process step; the production retriever's step ms with 2 shards x
+   8; ``gather_records`` and the single-process-eval refusal across the
+   ranks; the ``train_retriever`` CLI with ``num_shards=2`` (one
+   ``ckpt/best``, the same digest on both ranks).
 
 ``python3 chip_smoke.py --ablation [M]`` runs only an ablation of the three
 wgmma kernels instead: each source built again with a switch of
@@ -498,6 +521,7 @@ def phase_serve(bundle_np, num_questions: int):
                swapped=swapped, plain_qps=plain_stats.queries_per_s,
                edges_median=int(np.median(edges)), edges_max=int(edges.max()))
     out["profile"] = profile_serve(bundle, ds, kw)
+    out["_ctx"] = (bundle, ds, kw, results, full)  # phase 11d serves the same split over meshes
     return out
 
 
@@ -1963,6 +1987,409 @@ def phase_sweep(smi: str, load_split):
     return dict(nvidia_smi=smi, wall_s=wall, trials=trials, best=first_best, serve=serve)
 
 
+# Phase 11: the multi-device paths.  One card stands in for a mesh of
+# several entries ([cuda:0] * n): each entry holds its own shard and the
+# shards run one after another, so no number here is a multi-card speed.
+DP_DIR = OUT_DIR / "chip_smoke_dp"       # phase 11: rank rows and logs stay
+DP_WORK = DP_DIR / "work"                # parameters and the CLI's checkpoints, removed when phase 11 ends
+SHARDED_V = 4_194_304      # 11a: entity rows, 16 GiB in f32 (cut from JAX's "tens of millions" to fit one card)
+MESH_ENTRIES = 4           # 11a-11c: the one-card stand-in mesh
+KNN_V, KNN_B = 262_144, 64  # 11c: bench.py:353's kNN shape
+SHARD_TOL = 1e-5           # 11b: sharded vs unsharded kernel 2 values
+DP_RANKS = 2               # 11e: ranks spawned, sharing the card
+
+
+def tol_ratio(got, want, rtol: float, atol: float) -> float:
+    """max |got - want| / (atol + rtol |want|): at most 1 passes."""
+    return float(((got.float() - want.float()).abs() / (atol + rtol * want.float().abs())).max())
+
+
+def cuda_median_ms(fn, passes: int = 3) -> tuple[float, object]:
+    """Median CUDA-event ms of ``passes`` calls after one warm call, and the
+    last call's result."""
+    import torch
+
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(passes):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return sorted(times)[len(times) // 2], out
+
+
+def meshes():
+    import torch
+
+    from evi_rag_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return {f"[cuda:0]*{MESH_ENTRIES}": make_mesh(devices=[dev] * MESH_ENTRIES), "make_mesh()": make_mesh()}
+
+
+def phase_multidevice(smi: str, bundle_np, serve_ctx) -> dict:
+    """11a-11e (see the module docstring)."""
+    import torch
+
+    out = {"nvidia_smi": smi}
+    for name, fn in (("11a", lambda: phase_sharded_build(bundle_np)),
+                     ("11b", lambda: phase_sharded_query(bundle_np, out["11a"]["index"])),
+                     ("11c", phase_knn),
+                     ("11d", lambda: phase_dp_serve(serve_ctx)),
+                     ("11e", phase_dp_train)):
+        t = time.perf_counter()
+        out[name] = fn()
+        out[name]["wall_s"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        log(f"[{name}] wall {out[name]['wall_s']:.1f} s")
+    out["11a"].pop("index")
+    return out
+
+
+def phase_sharded_build(bundle_np) -> dict:
+    """11a: ``build_triple_index_sharded`` over both meshes against
+    ``build_triple_index`` on the card (rtol 1e-5 / atol 1e-6,
+    ``tests/test_sharded.py:236-238``): seconds and peak memory of each."""
+    import torch
+
+    from evi_rag_tpu_torch.ops.query import build_triple_index, build_triple_index_sharded
+    from evi_rag_tpu_torch.train.checkpoint import bundle_from_numpy
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    bundle = {"features": bundle_from_numpy(bundle_np["features"], device=dev)}
+    gen = torch.Generator(device=dev).manual_seed(29)
+    tables = dict(
+        entity_emb=torch.randn(SHARDED_V, D, device=dev, generator=gen),
+        relation_emb=torch.randn(RELATIONS, D, device=dev, generator=gen),
+        nontext_mask=torch.rand(SHARDED_V, device=dev, generator=gen) < 0.01,
+        heads=torch.randint(0, SHARDED_V, (POOLED_M,), device=dev, generator=gen),
+        rels=torch.randint(0, RELATIONS, (POOLED_M,), device=dev, generator=gen),
+        tails=torch.randint(0, SHARDED_V, (POOLED_M,), device=dev, generator=gen),
+        struct_raw=torch.randn(POOLED_M, S, device=dev, generator=gen),
+    )
+    rows = {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        index = fn()
+        torch.cuda.synchronize()
+        rows[label] = dict(seconds=time.perf_counter() - t, peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+        return index
+
+    ref = timed("unsharded", lambda: build_triple_index(bundle, **tables, device=dev))
+    got = {}
+    for label, mesh in meshes().items():
+        got[label] = timed(label, lambda m=mesh: build_triple_index_sharded(bundle, mesh=m, **tables))
+        ratio = max(tol_ratio(getattr(got[label], f), getattr(ref, f), 1e-5, 1e-6)
+                    for f in ("head_repr", "rel_repr", "tail_repr", "struct_raw"))
+        rows[label]["tol_ratio"] = ratio
+        if ratio > 1.0:
+            raise AssertionError(f"11a {label}: the sharded index differs from the unsharded one ({ratio:.3f} of "
+                                 "rtol 1e-5 / atol 1e-6)")
+    log(f"[11a sharded build] entity table {SHARDED_V} x {D} f32 ({SHARDED_V * D * 4 / 2**30:.0f} GiB), "
+        f"{RELATIONS} relations, {POOLED_M} candidates, S = {S}:")
+    for label, row in rows.items():
+        log(f"[11a sharded build]   {label}: {row['seconds']:.3f} s, peak {row['peak_gib']:.2f} GiB"
+            + (f", vs unsharded at {row['tol_ratio']:.4f} of rtol 1e-5 / atol 1e-6" if "tol_ratio" in row else ""))
+    index = got[f"[cuda:0]*{MESH_ENTRIES}"]
+    del tables, ref, got
+    return dict(rows=rows, index=index)
+
+
+def phase_sharded_query(bundle_np, index) -> dict:
+    """11b: 11a's index in bf16 through ``query_topk_sharded_fused`` (kernel
+    2 per shard) over both meshes against ``query_topk_fused`` unsharded, and
+    POOLED_CHECK queries of every result (the unsharded one too) against
+    kernel 2's plain version on the same bf16 index (``hold_to_plain``, as
+    phase 6); ``query_topk_sharded`` (f32, 8 queries) against ``query_topk``."""
+    import torch
+
+    from evi_rag_tpu_torch.ops import score_kernels as sk
+    from evi_rag_tpu_torch.ops.query import query_topk, query_topk_sharded, query_topk_sharded_fused
+    from evi_rag_tpu_torch.train.checkpoint import bundle_from_numpy
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    bundle = {"features": bundle_from_numpy(bundle_np["features"], device=dev)}
+    q = torch.randn(POOLED_B, D, device=dev, generator=torch.Generator(device=dev).manual_seed(31))
+    idx = index.to(dtype=torch.bfloat16)
+    w = sk.prep_weights(bundle["features"])
+    ref_v, ref_i = sk.query_topk_fused(bundle, q, idx, k=K, weights=w)
+    nq = POOLED_CHECK
+    plain = sk.fused_scores_reference(bundle, q[:nq], idx.head_repr, idx.rel_repr, idx.tail_repr, idx.struct_raw,
+                                      weights=w)
+    ref_err, ref_diff = hold_to_plain(ref_v[:nq], ref_i[:nq], plain, K)
+    log(f"[11b sharded pooled] unsharded kernel 2 on this index, {nq} queries vs its plain version: max abs err "
+        f"{ref_err:.3e}, differing ids {ref_diff} (tol {ATOL}, near-tie {TIE_TOL})")
+    rows = {"unsharded": dict(plain_max_abs_err=ref_err, plain_differing_ids=ref_diff)}
+    for label, mesh in meshes().items():
+        reset_launches()  # the main path of this slice: counts at 0 just before, read just after
+        ms, (v, i) = cuda_median_ms(lambda m=mesh: query_topk_sharded_fused(bundle, q, idx, mesh=m, k=K))
+        launches = sk.query_topk_fused.launches
+        if launches != 4 * mesh.size or sk.per_question_topk.launches or sk.score_bidirectional.launches:
+            raise AssertionError(f"11b {label}: kernel 2 launched {launches} times in 4 passes over {mesh.size} shards")
+        equal = bool(torch.equal(v, ref_v) and torch.equal(i, ref_i))
+        differing = hold_sharded(v, i, ref_v, ref_i)
+        err, diff = hold_to_plain(v[:nq], i[:nq], plain, K)
+        rows[label] = dict(ms=ms, qps=POOLED_B / ms * 1e3, launches_per_pass=launches // 4, bit_equal=equal,
+                           differing_ids=differing, max_abs_err=float((v - ref_v).abs().max()),
+                           plain_max_abs_err=err, plain_differing_ids=diff)
+        log(f"[11b sharded pooled] {label}: query_topk_sharded_fused {ms:.3f} ms per {POOLED_B}-query pass "
+            f"(CUDA events, median of 3; {rows[label]['qps']:.2f} q/s), kernel 2 launches per pass "
+            f"{launches // 4}; vs unsharded kernel 2: bit for bit {equal}, differing ids {differing}; {nq} "
+            f"queries vs the plain version: max abs err {err:.3e}, differing ids {diff}")
+    del plain
+    nq = 8
+    plain_ref = query_topk(bundle, q[:nq], index, k=K, dtype=torch.float32, device=dev)
+    for label, mesh in meshes().items():
+        t = time.perf_counter()
+        v, i = query_topk_sharded(bundle, q[:nq], index, mesh=mesh, k=K, dtype=torch.float32)
+        torch.cuda.synchronize()
+        ratio = tol_ratio(v, plain_ref[0], 1e-5, 1e-5)
+        same = all(set(a) == set(b) for a, b in zip(i.tolist(), plain_ref[1].tolist()))
+        if ratio > 1.0 or not same:
+            raise AssertionError(f"11b {label}: query_topk_sharded vs query_topk at {ratio:.3f} of rtol 1e-5 / "
+                                 f"atol 1e-5, equal id sets {same}")
+        rows[label].update(plain_s=time.perf_counter() - t, plain_tol_ratio=ratio)
+        log(f"[11b sharded pooled] {label}: query_topk_sharded (f32, {nq} queries) vs query_topk at {ratio:.4f} of "
+            f"rtol 1e-5 / atol 1e-5, equal id sets, {rows[label]['plain_s']:.2f} s")
+    return dict(rows=rows, launches=rows[f"[cuda:0]*{MESH_ENTRIES}"]["launches_per_pass"] * 4)
+
+
+def hold_sharded(v, i, ref_v, ref_i) -> int:
+    """The sharded top-k against the unsharded one: values of shared ids
+    within SHARD_TOL, and every id in one but not the other within TIE_TOL
+    of the other's k-th value.  Returns the differing ids."""
+    v, i, rv, ri = (x.cpu().numpy() for x in (v, i, ref_v, ref_i))
+    differing = 0
+    for b in range(v.shape[0]):
+        got, want = dict(zip(i[b].tolist(), v[b].tolist())), dict(zip(ri[b].tolist(), rv[b].tolist()))
+        for e in set(got) & set(want):
+            if abs(got[e] - want[e]) > SHARD_TOL:
+                raise AssertionError(f"11b query {b}: id {e} scores {got[e]} vs {want[e]}")
+        for e in set(got) ^ set(want):
+            val, kth = (got[e], rv[b, -1]) if e in got else (want[e], v[b, -1])
+            if abs(val - kth) > TIE_TOL:
+                raise AssertionError(f"11b query {b}: id {e} differs beyond the near-tie rule")
+        differing += len(set(got) ^ set(want)) // 2
+    return differing
+
+
+def phase_knn() -> dict:
+    """11c: kNN at bench.py:353's shape (cosine, bf16) one-shot, chunked,
+    approx and over MESH_ENTRIES shards, held to an f32 brute force on the
+    card (the near-tie rule; approx by its overlap >= 0.8 k)."""
+    import torch
+
+    from evi_rag_tpu_torch.ops import knn
+    from evi_rag_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(37)
+    table = torch.randn(KNN_V, D, device=dev, generator=gen)
+    q = torch.randn(KNN_B, D, device=dev, generator=gen)
+    unit = lambda x: x / x.norm(dim=-1, keepdim=True)  # noqa: E731
+    brute = unit(q) @ unit(table).T                     # [B, V] f32 cosine
+    want_v, want_i = torch.topk(brute, K)
+    oneshot = knn._ONESHOT_BYTES
+
+    def chunked():
+        knn._ONESHOT_BYTES = 0
+        try:
+            return knn.knn_topk(q, table, k=K, metric="cosine")
+        finally:
+            knn._ONESHOT_BYTES = oneshot
+
+    runs = {"one-shot": lambda: knn.knn_topk(q, table, k=K, metric="cosine"),
+            "chunked": chunked,
+            "approx": lambda: knn.knn_topk(q, table, k=K, metric="cosine", method="approx"),
+            f"sharded [cuda:0]*{MESH_ENTRIES}": lambda: knn.knn_topk_sharded(
+                q, table, mesh=make_mesh(devices=[dev] * MESH_ENTRIES), k=K, metric="cosine")}
+    rows = {}
+    for label, fn in runs.items():
+        ms, (v, i) = cuda_median_ms(fn)
+        row = dict(ms=ms, qps=KNN_B / ms * 1e3)
+        if label == "approx":
+            row["min_overlap"] = min(len(set(a) & set(b)) for a, b in zip(i.tolist(), want_i.tolist()))
+            if row["min_overlap"] < int(0.8 * K):
+                raise AssertionError(f"11c approx: overlap {row['min_overlap']} < {int(0.8 * K)} of k = {K}")
+        else:
+            row["max_abs_err"], row["differing_ids"] = hold_to_plain(v, i, brute, K)
+        rows[label] = row
+        log(f"[11c knn] {label}: {ms:.3f} ms for {KNN_B} queries over {KNN_V} x {D} bf16 (CUDA events, median of "
+            f"3), {row['qps']:.1f} q/s; " + (f"min overlap with the exact top-{K} {row['min_overlap']}"
+                                             if label == "approx" else
+                                             f"vs the f32 brute force: max abs err {row['max_abs_err']:.2e}, "
+                                             f"differing ids {row['differing_ids']} (near-tie rule)"))
+    return dict(rows=rows, bins=knn.partial_reduce_bins(K))
+
+
+def phase_dp_serve(ctx) -> dict:
+    """11d: phase 4's split through ``serve_split(mesh=...)`` over
+    ``make_mesh()`` and ``[cuda:0] * 2``, held to phase 4's single-device
+    serve (bit for bit expected: a question's scoring does not depend on its
+    group) and to the plain-version full rankings by phase 4's rule."""
+    import numpy as np
+    import torch
+
+    from evi_rag_tpu_torch.ops import score_kernels as sk
+    from evi_rag_tpu_torch.parallel.mesh import make_mesh
+    from evi_rag_tpu_torch.serving import serve_recall_at_k, serve_split
+
+    bundle, ds, kw, single, full = ctx
+    kw = {k: v for k, v in kw.items() if k != "device"}
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rows = {}
+    for label, mesh in {"make_mesh()": make_mesh(), "[cuda:0]*2": make_mesh(devices=[dev] * 2)}.items():
+        by_device: dict[str, int] = {}
+
+        def counted(b, q, h, *args, **kw2):
+            by_device[str(h.device)] = by_device.get(str(h.device), 0) + 1
+            return sk.per_question_topk(b, q, h, *args, **kw2)
+
+        serve_split(bundle, ds.samples, mesh=mesh, **kw)  # first pass: allocator warm
+        reset_launches()
+        by_device.clear()
+        results, stats = serve_split(bundle, ds.samples, mesh=mesh, fused_fn=counted, **kw)
+        launches = sk.per_question_topk.launches
+        if launches != mesh.size * (stats.num_groups + 1) or sum(by_device.values()) != launches:
+            raise AssertionError(f"11d {label}: kernel 3 launched {launches} times ({by_device}) for "
+                                 f"{stats.num_groups} groups over {mesh.size} entries")
+        qps = sorted([stats.queries_per_s] + [serve_split(bundle, ds.samples, mesh=mesh, **kw)[1].queries_per_s
+                                              for _ in range(2)])
+        equal = sum(np.array_equal(a.edge_ids, b.edge_ids) and np.array_equal(a.scores, b.scores)
+                    for a, b in zip(single, results))
+        _, swapped, max_err = check_against_plain(ds.samples, results, full)
+        rec = serve_recall_at_k(ds.samples, results, [10, 100])
+        rows[label] = dict(qps=qps, launches=launches, launches_by_device=by_device, groups=stats.num_groups,
+                           bit_equal_questions=equal, swapped=swapped, max_abs_err=max_err, recall=rec)
+        log(f"[11d dp serve] {label} ({mesh.size} entries): q/s per pass {qps} median {qps[1]}; kernel 3 launches "
+            f"{launches} = {mesh.size} x ({stats.num_groups} groups + 1 warmup), by device {by_device}; "
+            f"{equal}/{len(single)} questions bit for bit phase 4's single-device serve; vs the plain full "
+            f"rankings: max score error {max_err:.3e}, near-tie swaps {swapped}; recall {rec}")
+    # Phase 4's own call (no mesh) alternated with make_mesh(), here after
+    # 11a-11c: whether a gap between phase 4's q/s and 11d's follows the
+    # path or the state of the run.
+    alt: dict[str, list[float]] = {"mesh=None (phase 4's call)": [], "make_mesh()": []}
+    one = make_mesh()
+    for _ in range(3):
+        alt["mesh=None (phase 4's call)"].append(serve_split(bundle, ds.samples, **ctx[2])[1].queries_per_s)
+        alt["make_mesh()"].append(serve_split(bundle, ds.samples, mesh=one, **kw)[1].queries_per_s)
+    for label, qps in alt.items():
+        log(f"[11d dp serve] alternated, {label}: q/s per pass {qps} median {sorted(qps)[1]}")
+    return dict(rows=rows, alternated=alt, launches=rows["[cuda:0]*2"]["launches"])
+
+
+def phase_dp_train() -> dict:
+    """11e: data-parallel training on DP_RANKS ranks spawned with the EVI_*
+    variables (``testing_dp``), all on this card: (i) one f32 step
+    at D = H = 256 with 2 shards (7b's setting), the ranks bit for bit
+    equal and held to the single-process two-shard step (loss rtol 1e-5,
+    parameters rtol 1e-3 / atol 5e-5); (ii) the production retriever (7a's)
+    with 2 shards x 8, step ms; (iii) one stacked GFlowNet step at 8b's
+    width, held like (i) to the single-process loop over the same shards and
+    draws; the glue (``gather_records`` across the ranks, ``serve`` refused
+    under the group); (iv) the ``train_retriever`` CLI with num_shards=2:
+    one ``ckpt/best`` written by rank 0, the same digest on both ranks."""
+    import numpy as np
+    import torch
+
+    from evi_rag_tpu_torch import testing_dp
+    from evi_rag_tpu_torch.testing import SMALL_TRAIN_OVERRIDES
+
+    DP_WORK.mkdir(parents=True, exist_ok=True)
+    step_256 = dict(kind="retriever_step", name="step256", shards=2, per_shard=2,
+                    dataset=dict(num_samples=4, emb_dim=256, num_relations=64, num_entities=4096, min_nodes=64,
+                                 max_nodes=256, avg_extra_edges=3.0, seed=0),
+                    model=dict(emb_dim=256, hidden_dim=256, dropout_p=0.0),
+                    optimizer=dict(name="adamw", learning_rate=1e-4))
+    production = dict(kind="retriever_step", name="production", shards=2, per_shard=8, id_feed=True, warmup=2,
+                      steps=5, dataset=dict(num_samples=16, seed=8, **REALISTIC),
+                      model=dict(emb_dim=D, hidden_dim=H, dropout_p=0.1, compute_dtype="bfloat16",
+                                 hide_seek_enabled=True, hide_seek_p_near=0.7, hide_seek_p_far=0.1,
+                                 hide_seek_bias_near=-2.0, hide_seek_bias_far=-0.5),
+                      loss=dict(infonce_temperature=0.07), optimizer=dict(name="adamw", learning_rate=1e-4))
+    gfn = dict(kind="gflownet_step", name="gflownet", questions=GFN_BATCH, shards=2,
+               cfg=dict(hidden_dim=H, max_steps=4, num_train_rollouts=GFN_ROLLOUTS, bc_weight=0.5, dropout=0.1,
+                        optimizer=dict(name="adamw", learning_rate=1e-4)))
+    checks = [step_256, production, gfn, dict(kind="glue", name="glue")]
+    spec = dict(device="cuda", out_dir=str(DP_WORK / "ranks"), timeout_s=300, checks=checks)
+    t = time.perf_counter()
+    rows = testing_dp.spawn_checks(spec, DP_RANKS, timeout_s=600)
+    ranks_s = time.perf_counter() - t
+    cards = sorted({r["device"] for r in rows})
+    label = f"{DP_RANKS} ranks on {len(cards)} card(s)"
+    log(f"[11e dp train] {label} {cards} ({rows[0].get('card', rows[0]['device'])}), backend {rows[0]['backend']}, ranks' wall {ranks_s:.1f} s")
+    # The single-process references of (i) and (iii), here on the same card.
+    single = testing_dp.run_checks({**spec, "out_dir": str(DP_WORK / "single"), "checks": [step_256, gfn]})
+    out = dict(label=label, backend=rows[0]["backend"], cards=cards, ranks_s=ranks_s)
+    for name in ("step256", "gflownet"):
+        p = [np.load(DP_WORK / "ranks" / f"{name}_rank{r}.npz") for r in range(DP_RANKS)]
+        ref = np.load(DP_WORK / "single" / f"{name}_rank0.npz")
+        if not all(np.array_equal(p[0][k], p[r][k]) for r in range(1, DP_RANKS) for k in p[0].files):
+            raise AssertionError(f"11e {name}: the ranks' parameters differ")
+        ratio = max(float((np.abs(p[0][k] - ref[k]) / (5e-5 + 1e-3 * np.abs(ref[k]))).max()) for k in ref.files)
+        loss_rel = abs(rows[0]["checks"][name]["loss"] - single["checks"][name]["loss"]) / abs(
+            single["checks"][name]["loss"])
+        if ratio > 1.0 or loss_rel > 1e-5:
+            raise AssertionError(f"11e {name}: ranks vs one process: parameters at {ratio:.3f} of rtol 1e-3 / "
+                                 f"atol 5e-5, loss rel {loss_rel:.2e}")
+        bitwise = all(np.array_equal(p[0][k], ref[k]) for k in ref.files)
+        out[name] = dict(tol_ratio=ratio, loss_rel=loss_rel, bit_equal_to_single=bitwise,
+                         loss=rows[0]["checks"][name]["loss"], edges=rows[0]["checks"][name]["edges"])
+        log(f"[11e dp train] {name}: ranks bit for bit equal; vs the single-process step: parameters at "
+            f"{ratio:.4f} of rtol 1e-3 / atol 5e-5 (bit for bit {bitwise}), loss rel {loss_rel:.2e}")
+    prod = rows[0]["checks"]["production"]
+    out["production"] = dict(step_ms=prod["step_ms"], median_ms=float(np.median(prod["step_ms"])),
+                             loss=prod["loss"], edges=prod["edges"])
+    if not np.isfinite(prod["loss"]):
+        raise AssertionError("11e production: loss not finite")
+    log(f"[11e dp train] production retriever (D = H = {D}, bf16, 2 shards x 8): step ms {prod['step_ms']} "
+        f"median {out['production']['median_ms']:.2f} ({label}; wall clock per step with a sync), loss "
+        f"{prod['loss']:.4f}")
+    for r, row in enumerate(rows):
+        g = row["checks"]["glue"]
+        if [x["id"] for x in g["merged"]] != list(range(DP_RANKS + 1)) or "single process" not in (
+                g["errors"]["serve"] or "") or g["main_only"] != (0 if r == 0 else None):
+            raise AssertionError(f"11e glue on rank {r}: {g}")
+    log(f"[11e dp train] gather_records merged ids {[x['id'] for x in rows[0]['checks']['glue']['merged']]} on "
+        "every rank; serve under the group refused: the single-process-eval ConfigError")
+
+    ckpt = DP_WORK / "cli_ckpt"
+    overrides = [o for o in SMALL_TRAIN_OVERRIDES if not o.startswith(("retriever.train.per_shard_batch",
+                                                                       "retriever.train.max_epochs"))]
+    argv = lambda r: [sys.executable, "-m", "evi_rag_tpu_torch.cli", "train_retriever", "--configs-dir",  # noqa: E731
+                      str(ROOT / "configs"), *overrides, "retriever.train.max_epochs=2",
+                      f"retriever.train.num_shards={DP_RANKS}", "retriever.train.per_shard_batch=8",
+                      "extras.print_config=false", f"retriever.train.ckpt_dir={ckpt}",
+                      f"paths.log_dir={DP_DIR / f'cli_logs_rank{r}'}"]
+    t = time.perf_counter()
+    results = testing_dp.spawn(argv, DP_RANKS, timeout_s=600)
+    cli_s = time.perf_counter() - t
+    for r, (rc, _, err) in enumerate(results):
+        if rc != 0:
+            raise AssertionError(f"11e cli: rank {r} exited {rc}:\n{err[-3000:]}")
+    from evi_rag_tpu_torch.train.checkpoint import load_checkpoint
+
+    digests = [json.loads(sorted((DP_DIR / f"cli_logs_rank{r}").glob("**/metrics.json"))[-1].read_text())
+               ["best_ckpt_sha256"] for r in range(DP_RANKS)]
+    _, meta = load_checkpoint(ckpt / "best")
+    if sorted(p.name for p in ckpt.iterdir()) != ["best", "last"] or len(set(digests + [meta["params_sha256"]])) != 1:
+        raise AssertionError(f"11e cli: checkpoints {sorted(ckpt.iterdir())}, digests {digests}")
+    out["cli"] = dict(seconds=cli_s, digest=digests[0])
+    log(f"[11e dp train] train_retriever CLI, num_shards={DP_RANKS}, {label}: {cli_s:.1f} s; one ckpt/best "
+        f"(rank 0 writes), digest {digests[0][:16]}... on every rank")
+    (DP_DIR / "ranks.json").write_text(json.dumps(rows, indent=1))
+    shutil.rmtree(DP_WORK)
+    return out
+
+
 def wgmma_ptxas(sources) -> list[str]:
     """The ptxas report (registers, spills) of each wgmma kernel of
     ``sources``, with its dynamic shared memory (the same for every mode)."""
@@ -2158,6 +2585,7 @@ def main() -> int:
     native_bfs = phase_native()
     build = phase_build_data(smi, train["retriever_ckpt"])
     sweep = phase_sweep(smi, load_split)
+    multi = phase_multidevice(smi, bundle_np, serve.pop("_ctx"))
 
     rep = next(r for r in rows if r["M"] == REPORT_M)
     kernels = [{
@@ -2171,6 +2599,7 @@ def main() -> int:
         "launches_serving_trained_ckpt": train["serve"]["launches"],
         "launches_serving_built_split": build["serve"]["launches"],
         "launches_serving_sweep_best": sweep["serve"]["launches"],
+        "launches_dp_serve": multi["11d"]["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": rep["ms"],
         "plain_ms": rep["plain_ms"],
@@ -2190,6 +2619,7 @@ def main() -> int:
             "source": f"evi_rag_tpu_torch/csrc/{sources[name]}",
             "replaces": f"evi_rag_tpu/ops/pallas_score.py:{replaces[name]}",
             "launches": pooled["launches"][name],
+            **({"launches_sharded_pooled": multi["11b"]["launches"]} if name == "query_topk_fused" else {}),
             "max_abs_err": pooled["max_abs_err"][name],
             "ms": pooled["ms"][name],
             "plain_ms": pooled["plain_ms"][name],
@@ -2204,7 +2634,7 @@ def main() -> int:
         })
     details = dict(nvidia_smi=smi, build_s=build_s, kernel=rows, serve=serve, cli=cli_metrics,
                    pooled=pooled, train=train, gflownet=gflownet, native_bfs=native_bfs, build=build, sweep=sweep,
-                   kernels=kernels,
+                   multi=multi, kernels=kernels,
                    wall_s=time.perf_counter() - t_all)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(details, indent=2, default=str))
     log(f"[done] wall {details['wall_s']:.1f} s; details in chiprun_out/chip_smoke.json")

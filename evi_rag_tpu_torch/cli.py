@@ -24,7 +24,13 @@ writes ``sweep.json``; ``seed_stats`` reports one-hop seed statistics;
 ``metrics.json``.  ``retriever.ckpt`` and ``gflownet.ckpt`` name checkpoints in the port's
 format (``train/checkpoint.py``), such as ``train_retriever``'s ``ckpt/best``.
 ``dataset.source`` is ``synthetic`` or ``normalized`` (a materialized split
-from ``build``).  ``device=cpu`` runs on the CPU; the default is the GPU
+from ``build``).  ``retriever.train.num_shards=N`` trains data-parallel,
+one process per device: ``EVI_DISTRIBUTED=1 torchrun --nproc-per-node N
+-m evi_rag_tpu_torch.cli train_retriever retriever.train.num_shards=N ...``
+(or the ``EVI_COORDINATOR_ADDRESS`` / ``EVI_NUM_PROCESSES`` /
+``EVI_PROCESS_ID`` variables, ``parallel.multihost``); only rank 0 writes
+the checkpoints.  ``serve.data_parallel=true`` serves over every local card
+in one process.  ``device=cpu`` runs on the CPU; the default is the GPU
 (``seed_stats``, ``bfs_chains`` and ``reasoner`` run on the host only;
 ``sweep`` passes ``device`` to every trial).
 """
@@ -330,18 +336,23 @@ def task_train_retriever(cfg: dict, *, run_dir: pathlib.Path) -> dict[str, Any]:
 
     device = resolve_device(cfg.get("device"))
     _enforce_sub_training_scope(cfg, "train_retriever")
+    from evi_rag_tpu_torch.parallel.multihost import world_size
+
     tcfg = _retriever_train_cfg(cfg)
     t = cfg.get("retriever", {}).get("train", {})
     num_shards = int(t.get("num_shards", 1))
     per_shard = int(t.get("per_shard_batch", 8))
-    cards = torch.cuda.device_count() if device.type == "cuda" else 1
-    if num_shards > cards:
-        raise ConfigError(f"retriever.train.num_shards={num_shards} > available devices {cards}")
-    if num_shards > 1:
-        raise NotImplementedError(
-            "retriever.train.num_shards > 1 needs data-parallel training over several cards, "
-            "which is not ported yet (ROADMAP: sharded pooled path + data-parallel)"
-        )
+    # Data-parallel training runs one process per device: the group's ranks
+    # are the available devices.
+    ranks = world_size()
+    if num_shards > ranks:
+        raise ConfigError(
+            f"retriever.train.num_shards={num_shards} > available devices {ranks} (one process per device): "
+            f"launch EVI_DISTRIBUTED=1 torchrun --nproc-per-node {num_shards} -m evi_rag_tpu_torch.cli train_retriever "
+            f"retriever.train.num_shards={num_shards} ..., or set EVI_COORDINATOR_ADDRESS / "
+            "EVI_NUM_PROCESSES / EVI_PROCESS_ID")
+    if ranks > 1 and num_shards != ranks:
+        raise ConfigError(f"retriever.train.num_shards={num_shards} != the process group's {ranks} ranks")
 
     train_samples, ent, rel, q_train = _load_split(cfg, "train")
     model = _retriever_model(cfg, inferred_dim=ent.shape[1])
@@ -807,19 +818,23 @@ def task_serve(cfg: dict, *, run_dir: pathlib.Path) -> dict[str, Any]:
     """Checkpoint -> pre-projected index -> batched per-question top-k over
     each split, with measured q/s and triple recall@k."""
     from evi_rag_tpu_torch.eval.artifacts import write_manifest
+    from evi_rag_tpu_torch.parallel.mesh import make_mesh
     from evi_rag_tpu_torch.serving import project_tables, serve_recall_at_k, serve_split
     from evi_rag_tpu_torch.train.checkpoint import bundle_from_numpy, export_retriever_features
     from evi_rag_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(cfg.get("device"))
+    _enforce_single_process_eval(cfg)
     sv = cfg.get("serve", {})
     splits = list(sv.get("splits", ["test"]))
     k = int(sv.get("k", 100))
     group_size = int(sv.get("group_size", 16))
     dtype = torch.bfloat16 if str(sv.get("compute_dtype", "bfloat16")) == "bfloat16" else torch.float32
     k_grid = [int(v) for v in sv.get("k_values", DEFAULT_K_GRID) if int(v) <= k]
+    mesh = None
     if bool(sv.get("data_parallel", False)):
-        raise NotImplementedError("serve.data_parallel is not ported yet")
+        # Every local card, one process (the CPU alone when it is named).
+        mesh = make_mesh() if device.type == "cuda" else make_mesh(devices=[device])
 
     first_samples, ent, rel, q = _load_split(cfg, splits[0])
     params, _meta = _load_retriever_ckpt(cfg)
@@ -854,7 +869,7 @@ def task_serve(cfg: dict, *, run_dir: pathlib.Path) -> dict[str, Any]:
             entity_emb=ent_s, relation_emb=rel_s, question_emb=q_emb,
             k=k, num_rounds=int(pm["dde_rounds"]),
             num_reverse_rounds=int(pm["dde_reverse_rounds"]),
-            group_size=group_size, dtype=dtype, projected=split_tables,
+            group_size=group_size, dtype=dtype, projected=split_tables, mesh=mesh,
             fused_threshold=int(sv.get("fused_threshold", 256)),
             warmup=sv.get("warmup"), device=device,
         )
@@ -1144,6 +1159,11 @@ def main(argv: list[str] | None = None) -> int:
     # Python 3 version (plain parse_args leaves them unrecognised on some).
     args = parser.parse_intermixed_args(argv)
 
+    # A no-op unless EVI_COORDINATOR_ADDRESS or EVI_DISTRIBUTED is set: see
+    # parallel/multihost.py.
+    from evi_rag_tpu_torch.parallel.multihost import initialize_distributed
+
+    initialize_distributed()
     cfg = load_config(args.configs_dir, args.config or args.task, args.overrides)
     cfg.setdefault("task_name", args.task)
     cfg["_configs_dir"] = args.configs_dir

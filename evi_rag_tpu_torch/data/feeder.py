@@ -1,7 +1,6 @@
 """Bucketed batch collation: samples -> padded retriever and agent batches.
 
-Counterpart of ``evi_rag_tpu/data/feeder.py`` (the stacked agent layout,
-``collate_agent_stacked``, is the data-parallel one and is not ported), with
+Counterpart of ``evi_rag_tpu/data/feeder.py``, with
 the same bucket policy (node and edge totals rounded up to a base times a
 power of two, one graph slot reserved for the padding graph), the same
 numpy shuffle (``default_rng(seed)``), so both packages see the same batches
@@ -101,14 +100,18 @@ def collate_retriever(
     relation_emb: np.ndarray,
     question_emb: np.ndarray,
     bucket: Bucket,
+    with_pairs: bool = False,
     id_feed: bool = False,
     pin: bool = False,
-) -> RetrieverBatch:
+) -> RetrieverBatch | tuple[RetrieverBatch, PairSupervision]:
     """Gather embeddings and pack one padded ``RetrieverBatch`` on the host.
 
     ``id_feed=True`` skips the dense gathers and emits int32 table rows
     (``node_rows`` / ``edge_rows``; padding rows point at the tables' zero
-    pad row), which the step resolves on the device from ``EmbedTables``."""
+    pad row), which the step resolves on the device from ``EmbedTables``.
+    ``with_pairs=True`` also returns the samples' (start, answer) pair
+    supervision, padded to ``bucket.pairs`` (padding pairs on the padding
+    graph, masked off)."""
     G, N, E = bucket.graphs, bucket.nodes, bucket.edges
     graph = pad_graph_arrays(
         edge_index=[s.edge_index for s in samples],
@@ -151,7 +154,7 @@ def collate_retriever(
         n_off += nn
         e_off += ne
 
-    return RetrieverBatch(
+    batch = RetrieverBatch(
         graph=GraphBatch(**{k: _tensor(v, pin) for k, v in graph.items()}),
         node_emb=_tensor(node_emb, pin),
         node_is_nontext=_tensor(node_is_nontext, pin),
@@ -164,6 +167,34 @@ def collate_retriever(
         node_rows=_tensor(node_rows, pin),
         edge_rows=_tensor(edge_rows, pin),
     )
+    if not with_pairs:
+        return batch
+    return batch, _pairs(samples, bucket.pairs, G - 1, pin)
+
+
+def _pairs(samples: Sequence, num_pairs: int, pad_graph: int, pin: bool) -> PairSupervision:
+    """The samples' pair supervision laid end to end in ``num_pairs``
+    padded slots (graph g's pairs carry ``pair_batch = g``)."""
+    pair_batch = np.full(num_pairs, pad_graph, dtype=np.int32)
+    pair_start = np.zeros(num_pairs, dtype=np.int32)
+    pair_answer = np.zeros(num_pairs, dtype=np.int32)
+    pair_len = np.zeros(num_pairs, dtype=np.int32)
+    pair_mask = np.zeros(num_pairs, dtype=bool)
+    p_off = 0
+    for g, s in enumerate(samples):
+        npair = s.pair_start_local.shape[0]
+        if p_off + npair > num_pairs:
+            raise ValueError(f"pair bucket overflow: {p_off + npair} > {num_pairs}")
+        sl = slice(p_off, p_off + npair)
+        pair_batch[sl] = g
+        pair_start[sl] = s.pair_start_local
+        pair_answer[sl] = s.pair_answer_local
+        pair_len[sl] = s.pair_shortest_len
+        pair_mask[sl] = True
+        p_off += npair
+    t = lambda a: _tensor(a, pin)  # noqa: E731
+    return PairSupervision(pair_batch=t(pair_batch), pair_start_local=t(pair_start),
+                           pair_answer_local=t(pair_answer), pair_shortest_len=t(pair_len), pair_mask=t(pair_mask))
 
 
 def iter_retriever_batches(
@@ -240,13 +271,7 @@ def collate_agent(
     q_emb = np.zeros((G, question_emb.shape[1]), dtype=np.float32)
     is_dummy = np.zeros(G, dtype=bool)
 
-    pair_batch = np.full(P, pad_graph, dtype=np.int32)
-    pair_start = np.zeros(P, dtype=np.int32)
-    pair_answer = np.zeros(P, dtype=np.int32)
-    pair_len = np.zeros(P, dtype=np.int32)
-    pair_mask = np.zeros(P, dtype=bool)
-
-    n_off = e_off = p_off = 0
+    n_off = e_off = 0
     for g, s in enumerate(samples):
         nn, ne = s.num_nodes, s.num_edges
         ids = s.node_embedding_ids
@@ -264,18 +289,8 @@ def collate_agent(
         edge_labels[e_off : e_off + ne] = s.edge_labels
         q_emb[g] = question_emb[s.question_id]
         is_dummy[g] = s.is_dummy_agent
-        npair = s.pair_start_local.shape[0]
-        if p_off + npair > P:
-            raise ValueError(f"pair bucket overflow: {p_off + npair} > {P}")
-        sl = slice(p_off, p_off + npair)
-        pair_batch[sl] = g
-        pair_start[sl] = s.pair_start_local
-        pair_answer[sl] = s.pair_answer_local
-        pair_len[sl] = s.pair_shortest_len
-        pair_mask[sl] = True
         n_off += nn
         e_off += ne
-        p_off += npair
 
     t = lambda a: _tensor(a, pin)  # noqa: E731
     return AgentBatch(
@@ -290,16 +305,34 @@ def collate_agent(
         node_is_answer=t(node_is_answer),
         is_dummy=t(is_dummy),
         edge_labels=t(edge_labels),
-        pairs=PairSupervision(
-            pair_batch=t(pair_batch),
-            pair_start_local=t(pair_start),
-            pair_answer_local=t(pair_answer),
-            pair_shortest_len=t(pair_len),
-            pair_mask=t(pair_mask),
-        ),
+        pairs=_pairs(samples, P, pad_graph, pin),
         node_rows=t(node_rows),
         edge_rows=t(edge_rows),
     )
+
+
+def collate_agent_stacked(
+    samples: Sequence[AgentSample],
+    *,
+    num_shards: int,
+    entity_emb: np.ndarray,
+    relation_emb: np.ndarray,
+    question_emb: np.ndarray,
+    bucket: Bucket,
+    id_feed: bool = False,
+    pin: bool = False,
+) -> AgentBatch:
+    """Stacked data-parallel agent collation: a leading ``[S, ...]`` shard
+    axis, one padded self-contained agent batch per shard."""
+    if len(samples) % num_shards != 0:
+        raise ValueError(f"{len(samples)} samples not divisible by {num_shards} shards")
+    per = len(samples) // num_shards
+    stacked = _stack([
+        collate_agent(samples[i * per:(i + 1) * per], entity_emb=entity_emb, relation_emb=relation_emb,
+                      question_emb=question_emb, bucket=bucket, id_feed=id_feed)
+        for i in range(num_shards)
+    ])
+    return map_tensors(stacked, lambda t: t.pin_memory()) if pin else stacked
 
 
 def fixed_agent_bucket(samples: Sequence[AgentSample], batch_size: int) -> Bucket:

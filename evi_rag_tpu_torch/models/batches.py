@@ -94,6 +94,10 @@ class AgentBatch:
     node_rows: torch.Tensor | None = None  # [N] int32 entity-table rows (id feed)
     edge_rows: torch.Tensor | None = None  # [E] int32 relation-table rows (id feed)
 
+    def shard(self, i: int) -> "AgentBatch":
+        """Shard ``i`` of a stacked batch, as a flat batch."""
+        return map_tensors(self, lambda t: t[i])
+
 
 def make_tables(entity_emb, relation_emb, *, device: str | torch.device | None = None) -> EmbedTables:
     """Upload the entity and relation tables once (plus the zero pad row) to

@@ -23,11 +23,13 @@ import torch
 
 
 def map_tensors(obj: Any, fn) -> Any:
-    """Apply ``fn`` to every tensor field of a (nested) batch dataclass."""
+    """Apply ``fn`` to every tensor of a (nested) batch dataclass or dict."""
     if dataclasses.is_dataclass(obj):
         return dataclasses.replace(obj, **{
             f.name: map_tensors(getattr(obj, f.name), fn) for f in dataclasses.fields(obj)
         })
+    if isinstance(obj, dict):
+        return {k: map_tensors(v, fn) for k, v in obj.items()}
     if isinstance(obj, torch.Tensor):
         return fn(obj)
     return obj

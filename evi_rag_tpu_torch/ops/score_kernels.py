@@ -375,9 +375,13 @@ def _lib(source: str) -> ctypes.CDLL:
     return _LIBS[source]
 
 
-def _launch(source: str, entry: str, name: str, *args: Any) -> None:
+def _launch(source: str, entry: str, name: str, dev: torch.device, *args: Any) -> None:
+    """Call a C entry with ``dev`` as the current device, so that a launch
+    for tensors on ``cuda:1`` runs on that card (and sets its attributes
+    there), whatever the caller's current device."""
     lib = _lib(source)
-    rc = getattr(lib, entry)(*args)
+    with torch.cuda.device(dev):
+        rc = getattr(lib, entry)(*args)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: {lib.error_string(rc).decode()}")
 
@@ -475,7 +479,7 @@ def _select(scores: torch.Tensor, k: int, name: str) -> tuple[torch.Tensor, torc
     b, m = scores.shape
     vals = torch.empty((b, k), dtype=torch.float32, device=scores.device)
     ids = torch.empty((b, k), dtype=torch.int32, device=scores.device)
-    _launch(SCORE_SOURCE, "sb_select", name, _ptr(scores), _ptr(vals), _ptr(ids), b, m, k,
+    _launch(SCORE_SOURCE, "sb_select", name, scores.device, _ptr(scores), _ptr(vals), _ptr(ids), b, m, k,
             _stream(scores.device))
     return vals, ids
 
@@ -498,7 +502,7 @@ def _pooled_scores(source: str, entry: str, name: str, bundle, q_emb, rows, weig
         scratch.append(torch.empty((n, 2, h_dim), dtype=torch.float32, device=dev))
     for c0, c1 in chunks:
         _launch(
-            source, entry, name,
+            source, entry, name, dev,
             _ptr(h, c0 * d), _ptr(r, c0 * d), _ptr(t, c0 * d), _ptr(st, c0 * s), _ptr(gate), _ptr(bias),
             *_weight_args(w), *(_ptr(x) for x in scratch), _ptr(scores, c0), m,
             b, c1 - c0, d, h_dim, s, _stream(dev),
@@ -573,7 +577,7 @@ def per_question_topk(
     nav = torch.empty(((chunks[0][1] - chunks[0][0]) * m, 2), dtype=torch.float32, device=dev)
     for g0, g1 in chunks:
         _launch(
-            KERNEL_SOURCE, "pqt_forward", "per_question_topk",
+            KERNEL_SOURCE, "pqt_forward", "per_question_topk", dev,
             _ptr(lengths, g0), _ptr(head_repr, g0 * m * d), _ptr(rel_repr, g0 * m * d),
             _ptr(tail_repr, g0 * m * d), _ptr(struct_raw, g0 * m * s), _ptr(gate, g0 * d), _ptr(bias, g0 * d),
             *_weight_args(w), _ptr(sc), _ptr(nav), _ptr(scores, g0 * m), _ptr(vals, g0 * k), _ptr(ids, g0 * k),

@@ -1,5 +1,5 @@
 """Split-serving engine: trained retriever -> pre-projected tables -> batched
-per-question top-k, on one CUDA device.
+per-question top-k, on one CUDA device or data-parallel over a mesh.
 
 Counterpart of ``evi_rag_tpu/serving.py``.  The entity / relation tables are
 pushed through the frozen projectors once per checkpoint and stay on the
@@ -15,6 +15,15 @@ fused_threshold`` go through the hand-written kernel
 (``ops.score_kernels.per_question_topk``); smaller buckets and every f32
 request go through the plain PyTorch scorer (``ops.query``).  An f32 request
 never reaches the bf16 kernel.
+
+With a ``mesh`` (``parallel.mesh``), each group's question axis splits
+across the mesh's devices (the group size rounds up to a multiple of the
+mesh size, partial groups pad with empty questions), every device serves
+its share through the same engine with the tables replicated there, and the
+results come back to the first device.  Unlike the JAX engine, which keeps
+the XLA scorer under a mesh because a ``pallas_call`` does not partition
+itself, bf16 buckets from ``fused_threshold`` up take the kernel on every
+device.
 
 What the JAX engine did only for a remote TPU link is gone: int16 feeds,
 bf16-in-int32 result packing, padding chunks to a fixed compiled shape.
@@ -39,6 +48,7 @@ from evi_rag_tpu_torch.models.dde import build_node_struct_features
 from evi_rag_tpu_torch.ops.nnfn import projector as _projector, tree_to
 from evi_rag_tpu_torch.ops.query import query_topk_per_question
 from evi_rag_tpu_torch.ops.score_kernels import per_question_topk, prep_weights
+from evi_rag_tpu_torch.parallel.mesh import Mesh, per_device
 from evi_rag_tpu_torch.utils.device import resolve_device
 
 
@@ -224,24 +234,35 @@ def serve_split(
     ``projected`` reuses ``project_tables`` output across splits.
     ``fused_fn`` serves the kernel-routed buckets (``per_question_topk``;
     ``chip_smoke.py`` passes the plain version to compare end to end).
-    Runs on ``device`` (cuda unless ``"cpu"`` is asked for).
+    Runs on ``device`` (cuda unless ``"cpu"`` is asked for), or, with
+    ``mesh``, data-parallel over its devices with the results on the first.
     """
-    if mesh is not None:
-        raise NotImplementedError("data-parallel serving is not ported yet")
-    dev = resolve_device(device)
+    if mesh is None:
+        mesh = Mesh((resolve_device(device),))
+    devices = mesh.devices
+    group_size = -(-group_size // len(devices)) * len(devices)
+    dev = devices[0]
     on_cuda = dev.type == "cuda"
     t0 = time.perf_counter()
     feats = tree_to(bundle["features"], dev)
     bundle = {**bundle, "features": feats}
     if projected is None:
         projected = project_tables(bundle, entity_emb, relation_emb, device=dev)
-    ent_t, rel_t = (torch.as_tensor(x, dtype=torch.float32).to(dev) for x in projected)
-    q_table = torch.as_tensor(np.asarray(question_emb, dtype=np.float32)).to(dev)
     kernel_path = dtype == torch.bfloat16
-    weights = prep_weights(feats) if kernel_path else None
-    ent_k = ent_t.to(torch.bfloat16) if kernel_path else None
-    rel_k = rel_t.to(torch.bfloat16) if kernel_path else None
-    _sync(dev)
+
+    def replica(d: torch.device) -> dict[str, Any]:
+        """The tables, question embeddings and weights on device ``d``."""
+        f = tree_to(feats, d)
+        ent_t, rel_t = (torch.as_tensor(x, dtype=torch.float32).to(d) for x in projected)
+        out = dict(bundle={**bundle, "features": f}, ent=ent_t, rel=rel_t,
+                   q=torch.as_tensor(np.asarray(question_emb, dtype=np.float32)).to(d),
+                   weights=prep_weights(f) if kernel_path else None,
+                   ent_k=ent_t.to(torch.bfloat16) if kernel_path else None,
+                   rel_k=rel_t.to(torch.bfloat16) if kernel_path else None)
+        _sync(d)
+        return out
+
+    replicas = per_device(mesh, replica)
     index_build_s = time.perf_counter() - t0
 
     order = sorted(range(len(samples)), key=lambda i: samples[i].edge_index.shape[1])
@@ -336,25 +357,35 @@ def serve_split(
         # plain PyTorch scorer.
         return m_pad >= fused_threshold and dtype == torch.bfloat16
 
-    def _upload(x: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(x)
-        if on_cuda:
-            return t.pin_memory().to(dev, non_blocking=True)
+    def _upload(x: np.ndarray, d: torch.device) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if d.type == "cuda":
+            return t.pin_memory().to(d, non_blocking=True)
         return t
 
     def _dispatch(key: tuple, chunk: list[dict]) -> tuple[torch.Tensor, torch.Tensor]:
-        """One ``serve_window`` call for the chunk's groups (no padding: the
-        groups are served one after another)."""
-        u = {f: _upload(np.stack([a[f] for a in chunk])) for f in chunk[0]}
+        """``serve_window`` for the chunk's groups (no padding: the groups
+        are served one after another), each group's questions split over the
+        devices; the [B, G, k] results on the first device."""
+        feed = {f: np.stack([a[f] for a in chunk]) for f in chunk[0]}
         fused = _use_fused(key[0])
-        return serve_window(
-            bundle, q_table,
-            ent_k if fused else ent_t, rel_k if fused else rel_t,
-            u["eidx"], u["node_rows"], u["rel_ids"],
-            u["lengths"], u["topic"], u["ncnt"], u["qids"],
-            k=k, num_rounds=num_rounds, num_reverse_rounds=num_reverse_rounds,
-            dtype=dtype, use_fused=fused, weights=weights, fused_fn=fused_fn,
-        )
+        per = group_size // len(devices)
+        vals, ids = [], []
+        for j, (d, rep) in enumerate(zip(devices, replicas)):
+            u = {f: _upload(x[:, j * per:(j + 1) * per], d) for f, x in feed.items()}
+            v, i = serve_window(
+                rep["bundle"], rep["q"],
+                rep["ent_k"] if fused else rep["ent"], rep["rel_k"] if fused else rep["rel"],
+                u["eidx"], u["node_rows"], u["rel_ids"],
+                u["lengths"], u["topic"], u["ncnt"], u["qids"],
+                k=k, num_rounds=num_rounds, num_reverse_rounds=num_reverse_rounds,
+                dtype=dtype, use_fused=fused, weights=rep["weights"], fused_fn=fused_fn,
+            )
+            vals.append(v.to(dev))
+            ids.append(i.to(dev))
+        if len(devices) == 1:
+            return vals[0], ids[0]
+        return torch.cat(vals, dim=1), torch.cat(ids, dim=1)
 
     # Warmup before the timed loop (on by default on the GPU): one dispatch
     # of an empty feed, at the smallest kernel-routed shape if there is one.
@@ -367,7 +398,8 @@ def serve_split(
         keys = sorted({key for win in windows for _, _, key, _ in win})
         key = next((kk for kk in keys if _use_fused(kk[0])), keys[0])
         _dispatch(key, [pack_group_compact([], group_size, *key)])
-        _sync(dev)
+        for d in set(devices):
+            _sync(d)
         compile_s = time.perf_counter() - tw
     t1 = time.perf_counter()
 
@@ -387,7 +419,7 @@ def serve_split(
         vals_h.copy_(vals, non_blocking=True)
         ids_h.copy_(ids, non_blocking=True)
         done = torch.cuda.Event()
-        done.record()
+        done.record(torch.cuda.current_stream(dev))
         return meta, vals_h, ids_h, done
 
     def drain_window(staged) -> None:

@@ -183,10 +183,12 @@ def random_bundle(dim: int, seed: int = 0) -> dict:
     return export_retriever_features(params_to_numpy(model)["params"], model.parity_meta())
 
 
-def agent_inputs(dim: int, questions: int, seed: int = 0):
+def agent_inputs(dim: int, questions: int, seed: int = 0, shards: int | None = None):
     """A dense agent batch of ``questions`` graphs from the realistic
-    generator at width ``dim`` (random retriever scores, top 64 edges)."""
-    from evi_rag_tpu_torch.data.feeder import collate_agent, fixed_agent_bucket
+    generator at width ``dim`` (random retriever scores, top 64 edges); with
+    ``shards``, stacked as ``shards`` batches of ``questions / shards``
+    (``collate_agent_stacked``)."""
+    from evi_rag_tpu_torch.data.feeder import collate_agent, collate_agent_stacked, fixed_agent_bucket
     from evi_rag_tpu_torch.data.g_agent import AgentSettings, build_agent_sample
 
     ds = make_synthetic_dataset(num_samples=2 * questions, emb_dim=dim, num_relations=64, num_entities=4096,
@@ -204,8 +206,11 @@ def agent_inputs(dim: int, questions: int, seed: int = 0):
         if a is not None:
             samples.append(a)
     samples = samples[:questions]
-    return collate_agent(samples, entity_emb=ds.entity_emb, relation_emb=ds.relation_emb,
-                         question_emb=ds.question_emb, bucket=fixed_agent_bucket(samples, questions))
+    kw = dict(entity_emb=ds.entity_emb, relation_emb=ds.relation_emb, question_emb=ds.question_emb)
+    if shards:
+        return collate_agent_stacked(samples, num_shards=shards, bucket=fixed_agent_bucket(samples, questions // shards),
+                                     **kw)
+    return collate_agent(samples, bucket=fixed_agent_bucket(samples, questions), **kw)
 
 
 def gfn_card_vs_cpu_step(hidden: int = 64, questions: int = 4, seed: int = 0,

@@ -111,13 +111,21 @@ def save_checkpoint(
     step: int | None = None,
 ) -> str:
     """Save ``{"params": params}`` (+ ``opt_state`` under ``opt_state/``) as
-    ``state.npz`` plus ``meta.json``; returns the params digest."""
+    ``state.npz`` plus ``meta.json``; returns the params digest.
+
+    Under a process group every rank may call this with the same (shared)
+    path; only rank 0 writes.  Data-parallel parameters are the same on
+    every rank, so every caller gets the same digest."""
+    from evi_rag_tpu_torch.utils.logging import is_main_process
+
     path = pathlib.Path(path).absolute()
+    digest = params_digest(params)
+    if not is_main_process():
+        return digest
     tree: dict[str, Any] = {"params": params}
     if opt_state is not None:
         tree["opt_state"] = opt_state
     arrays = {key: _to_numpy(leaf) for key, leaf in flatten_tree(tree).items()}
-    digest = params_digest(params)
     path.mkdir(parents=True, exist_ok=True)
     with (path / STATE_FILENAME).open("wb") as f:
         np.savez(f, **arrays)

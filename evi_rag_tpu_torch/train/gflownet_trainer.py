@@ -16,8 +16,14 @@ Parameters are the flax tree ``{"policy": {"params": ...}, "state_encoder":
 {"params": ...}, "estimator": {"params": ...}, "edge_score_proj": {...}}``
 (``gflownet_path``), with kernels ``[in, out]``, so checkpoints, digests and
 the optimizer's glob patterns carry across; ``load_gflownet_params`` /
-``gflownet_params_to_numpy`` move a JAX tree in and out.  Stacked
-(data-parallel) agent batches are not ported.
+``gflownet_params_to_numpy`` move a JAX tree in and out.
+
+A stacked ``[S, ...]`` agent batch (``data.feeder.collate_agent_stacked``)
+is the data-parallel layout: the loss is the mean of the shards' losses.
+In one process the shards run one after another on one device; under a
+process group of ranks each rank computes its block of the shards and the gradients are all-reduced, as the retriever's step does
+(``retriever_trainer.sharded_grads``).  Each shard's draws are
+``actor.make_rollout_draws`` of that shard's replicated batch.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ from torch.func import functional_call
 from evi_rag_tpu_torch.data.feeder import prefetch
 from evi_rag_tpu_torch.eval.metrics import MetricAccumulator
 from evi_rag_tpu_torch.models.batches import AgentBatch, EmbedTables, materialize_agent_batch, replicate_agent_batch
-from evi_rag_tpu_torch.models.gflownet.actor import ActorConfig, rollout
+from evi_rag_tpu_torch.models.gflownet.actor import MIN_TEMPERATURE, ActorConfig, make_rollout_draws, rollout
 from evi_rag_tpu_torch.models.gflownet.embedder import EmbedOutputs, apply_score_bonus, embed_agent_batch_frozen
 from evi_rag_tpu_torch.models.gflownet.policy import GFlowNetEdgePolicy
 from evi_rag_tpu_torch.models.gflownet.reward import RewardConfig, compute_reward
@@ -52,7 +58,7 @@ from evi_rag_tpu_torch.ops.graph import batch_to
 from evi_rag_tpu_torch.ops.nnfn import tree_to
 from evi_rag_tpu_torch.train.checkpoint import flatten_tree, unflatten_tree
 from evi_rag_tpu_torch.train.optim import Optimizer, OptimizerConfig, setup_optimizer
-from evi_rag_tpu_torch.train.retriever_trainer import TrainState
+from evi_rag_tpu_torch.train.retriever_trainer import TrainState, sharded_grads
 from evi_rag_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger(__name__)
@@ -232,10 +238,22 @@ def rollout_losses(
     replicated batch (``actor.make_rollout_draws``; else from
     ``generator``).  ``collect_rollouts`` adds ``rollout_actions`` /
     ``rollout_directions`` [R, G, T] (edge ids of ``batch``, -1 for STOP)
-    and ``rollout_hits`` [R, G]."""
+    and ``rollout_hits`` [R, G].
+
+    A stacked ``[S, ...]`` batch runs shard by shard (``frozen_embed`` and
+    ``draws`` then hold one entry per shard): the mean loss, the scalar
+    metrics averaged over the shards and the per-graph ones stacked on a
+    leading shard axis."""
     if batch.question_emb.ndim == 3:
-        raise NotImplementedError("stacked (data-parallel) agent batches are not ported yet "
-                                  "(ROADMAP queue 1: multi-card paths)")
+        parts = [rollout_losses(
+            modules, bundle, batch.shard(i), cfg, num_rollouts=num_rollouts, bc_weight=bc_weight,
+            temperature=temperature, greedy=greedy, train=train,
+            frozen_embed=None if frozen_embed is None else frozen_embed[i], collect_rollouts=collect_rollouts,
+            draws=None if draws is None else draws[i], generator=generator,
+        ) for i in range(batch.question_emb.shape[0])]
+        per_shard = {k: torch.stack([m[k] for _, m in parts]) for k in parts[0][1]}
+        return (torch.stack([lo for lo, _ in parts]).mean(),
+                {k: v.mean(0) if v.ndim == 1 else v for k, v in per_shard.items()})
     gb = batch.graph
     g, e = gb.num_graphs, gb.num_edges
     r = num_rollouts
@@ -295,6 +313,15 @@ def _prepare(batch: AgentBatch, dev: torch.device, tables: EmbedTables | None) -
     return materialize_agent_batch(batch_to(batch, dev), tables)
 
 
+def train_rollout_draws(cfg: GFlowNetConfig, batch: AgentBatch,
+                        generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+    """The draws a training ``rollout_losses`` of the flat ``batch`` makes
+    (``actor.make_rollout_draws`` over its R copies), from ``generator``."""
+    return make_rollout_draws(
+        cfg.actor, replicate_agent_batch(batch, cfg.num_train_rollouts), hidden_dim=cfg.hidden_dim,
+        dropout=cfg.dropout, train=True, sample=cfg.policy_temperature >= MIN_TEMPERATURE, generator=generator)
+
+
 def make_gfn_train_step(
     modules: GFlowNetModules,
     tx: Optimizer,
@@ -306,7 +333,9 @@ def make_gfn_train_step(
     moves the batch to the modules' device, resolves an id-feed batch from
     ``tables``, and returns the new state and device scalars (``loss``,
     ``bc_weight`` and the metrics).  The BC weight is a tensor function of
-    the step."""
+    the step.  A stacked batch takes ``frozen_embed`` and ``draws`` as one
+    entry per shard; under a process group of ranks the step is
+    data-parallel (``retriever_trainer.sharded_grads``)."""
     hold = int(round(cfg.total_steps * cfg.bc_hold_ratio))
     decay = int(round(cfg.total_steps * cfg.bc_decay_ratio))
 
@@ -316,15 +345,26 @@ def make_gfn_train_step(
         batch = _prepare(batch, dev, tables)
         bc_w = bc_weight_schedule(torch.tensor(state.step, dtype=torch.int32), bc_weight=cfg.bc_weight,
                                   bc_weight_floor=cfg.bc_weight_floor, hold_steps=hold, decay_steps=decay)
-        modules.zero_grad(set_to_none=True)
-        loss, metrics = rollout_losses(
-            modules, bundle, batch, cfg, num_rollouts=cfg.num_train_rollouts, bc_weight=bc_w,
-            temperature=cfg.policy_temperature, train=True, frozen_embed=frozen_embed, draws=draws,
-            generator=state.generator,
-        )
-        loss.backward()
-        grads = {gflownet_path(n): (p.grad if p.grad is not None else torch.zeros_like(p))
-                 for n, p in modules.named_parameters()}
+        kw = dict(num_rollouts=cfg.num_train_rollouts, bc_weight=bc_w, temperature=cfg.policy_temperature,
+                  train=True)
+        if batch.question_emb.ndim == 3:
+            def shard_loss(i: int, d):
+                lo, m = rollout_losses(modules, bundle, batch.shard(i), cfg, draws=d,
+                                       frozen_embed=None if frozen_embed is None else frozen_embed[i], **kw)
+                return lo, {k: v for k, v in m.items() if k != "answer_hit_graphs"}
+
+            def draws_fn(i: int):
+                return draws[i] if draws is not None else train_rollout_draws(cfg, batch.shard(i), state.generator)
+
+            loss, metrics, named = sharded_grads(modules, batch.question_emb.shape[0], shard_loss, draws_fn)
+            grads = {gflownet_path(n): g for n, g in named.items()}
+        else:
+            modules.zero_grad(set_to_none=True)
+            loss, metrics = rollout_losses(modules, bundle, batch, cfg, frozen_embed=frozen_embed, draws=draws,
+                                           generator=state.generator, **kw)
+            loss.backward()
+            grads = {gflownet_path(n): (p.grad if p.grad is not None else torch.zeros_like(p))
+                     for n, p in modules.named_parameters()}
         params = flatten_tree(state.params)
         updates, opt_state = tx.update(grads, state.opt_state, params)
         with torch.no_grad():

@@ -4,12 +4,19 @@ Counterpart of ``evi_rag_tpu/train/retriever_trainer.py``:
 
 * ``make_train_step`` builds one update: forward, InfoNCE (+ BCE), backward,
   the optax-rule optimizer.  Stacked batches keep their semantics: the loss
-  is the mean of the per-shard losses, all shards on one device (each
-  shard's backward runs before the next shard's forward, so only one
-  shard's activations are alive at a time).  ``remat`` recomputes the
-  forward in the backward (``torch.utils.checkpoint``); the random draws
-  are made *outside* the checkpointed function, because a recompute would
-  otherwise draw other masks from the explicit generator.
+  is the mean of the per-shard losses.  In one process all shards run on
+  one device (each shard's backward runs before the next shard's forward,
+  so only one shard's activations are alive at a time).  Under a process
+  group of n ranks (one process per device, JAX's data-parallel mesh in the
+  torch idiom), rank r computes its block of the
+  shards and the gradients, loss and metrics are all-reduced (the sum over
+  the shards, then / S: JAX's mean over the vmapped shards), so every rank
+  applies the same update.  Every rank builds the same stacked batch from
+  the same seed and draws every shard's random draws in order, keeping its
+  own, so the generators stay in step.  ``remat`` recomputes the forward
+  in the backward (``torch.utils.checkpoint``); the random draws are made
+  *outside* the checkpointed function, because a recompute would otherwise
+  draw other masks from the explicit generator.
 * ``make_eval_step`` computes the full per-graph metric suite and the
   FeatureMonitor terms on the device.
 * ``fit`` drives epochs with the reference's model selection: a monitored
@@ -45,6 +52,7 @@ from evi_rag_tpu_torch.models.batches import EmbedTables, RetrieverBatch, materi
 from evi_rag_tpu_torch.models.losses import RetrieverLossConfig, retriever_loss
 from evi_rag_tpu_torch.models.retriever import Retriever, flax_path, init_parameters, params_tree
 from evi_rag_tpu_torch.ops.graph import batch_to
+from evi_rag_tpu_torch.parallel.multihost import all_reduce_mean, owned_shards, world_size
 from evi_rag_tpu_torch.train.checkpoint import flatten_tree, load_checkpoint, unflatten_tree
 from evi_rag_tpu_torch.train.optim import Optimizer, OptimizerConfig, setup_optimizer
 from evi_rag_tpu_torch.utils.device import resolve_device
@@ -128,6 +136,41 @@ def shard_loss(
     return lo.loss, {**lo.components, **lo.metrics}
 
 
+def sharded_grads(
+    module: torch.nn.Module,
+    num_shards: int,
+    shard_loss_fn: Callable[[int, Any], tuple[torch.Tensor, dict[str, torch.Tensor]]],
+    draws_fn: Callable[[int], Any],
+) -> tuple[torch.Tensor, dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+    """(mean loss over the shards, mean metrics, ``{parameter name: mean
+    gradient}``) of a stacked batch.  ``draws_fn(i)`` makes shard i's draws,
+    called for every shard in order; ``shard_loss_fn(i, draws)`` gives the
+    loss and metrics of each shard this process owns (``owned_shards``:
+    all, or its block under a process group of ranks), whose backward runs
+    at once.  The gradients, loss and metrics are summed in shard order,
+    all-reduced over the ranks, then divided by ``num_shards``."""
+    own = owned_shards(num_shards)
+    named = list(module.named_parameters())
+    module.zero_grad(set_to_none=True)
+    loss, sums, grads = None, {}, None
+    for i in range(num_shards):
+        d = draws_fn(i)
+        if i not in own:
+            continue
+        lo, metrics = shard_loss_fn(i, d)
+        lo.backward()
+        g = [p.grad if p.grad is not None else torch.zeros_like(p) for _, p in named]
+        module.zero_grad(set_to_none=True)
+        grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+        loss = lo.detach() if loss is None else loss + lo.detach()
+        for k, v in metrics.items():
+            sums[k] = v.detach().float() if k not in sums else sums[k] + v.detach().float()
+    keys = sorted(sums)
+    scalars = torch.stack([loss.float()] + [sums[k] for k in keys])
+    all_reduce_mean(grads + [scalars], num_shards)
+    return scalars[0], dict(zip(keys, scalars[1:])), {name: g for (name, _), g in zip(named, grads)}
+
+
 def loss_and_grads(
     model: Retriever,
     cfg: RetrieverTrainConfig,
@@ -137,23 +180,21 @@ def loss_and_grads(
     draws: list[dict[str, Any]] | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor], dict[str, torch.Tensor]]:
     """(mean loss over shards, mean metrics, ``{flax path: grad}``) of a
-    stacked dense batch on the module's device.  ``draws`` gives each
-    shard's draws (else they come from ``generator``)."""
-    model.zero_grad(set_to_none=True)
+    stacked dense batch on the module's device (``sharded_grads``; under a
+    process group this rank computes its shards and the results are
+    all-reduced).  ``draws`` gives each shard's draws (else they come from
+    ``generator``, every shard's in order)."""
     n = stacked.question_emb.shape[0]
-    loss = torch.zeros((), device=stacked.question_emb.device)
-    sums: dict[str, torch.Tensor] = {}
-    for i in range(n):
-        shard = stacked.shard(i)
-        lo, metrics = shard_loss(model, cfg.loss, shard, draws=None if draws is None else draws[i],
-                                 generator=generator, remat=cfg.remat)
-        (lo / n).backward()
-        loss = loss + lo.detach() / n
-        for k, v in metrics.items():
-            sums[k] = sums.get(k, 0.0) + v.detach() / n
-    grads = {flax_path(name): (p.grad if p.grad is not None else torch.zeros_like(p))
-             for name, p in model.named_parameters()}
-    return loss, sums, grads
+
+    def draws_fn(i: int):
+        if draws is not None:
+            return draws[i]
+        return model.make_draws(stacked.shard(i), train=True, generator=generator)
+
+    loss, metrics, grads = sharded_grads(
+        model, n, lambda i, d: shard_loss(model, cfg.loss, stacked.shard(i), draws=d, remat=cfg.remat),
+        draws_fn)
+    return loss, metrics, {flax_path(name): g for name, g in grads.items()}
 
 
 def make_train_step(
@@ -165,7 +206,8 @@ def make_train_step(
     """One update over a stacked ``[S, ...]`` batch (moved to the module's
     device; an id-feed batch is resolved from ``tables`` there).  Returns
     the new state and device scalars (``loss``, ``grad_norm``, the loss's
-    components and metrics)."""
+    components and metrics).  Under a process group of ranks the step is
+    data-parallel: see ``sharded_grads``."""
 
     def step(state: TrainState, stacked: RetrieverBatch):
         dev = _model_device(model)
@@ -312,10 +354,16 @@ def fit(
 ) -> tuple[dict[str, Any], dict[str, Any]]:
     """Epoch loop with monitored early stopping; returns (best params as a
     flax variable tree of tensors, history).  ``resume_from`` restores the
-    parameters (+ the optimizer state when saved) from a checkpoint."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training over several devices is not ported yet (ROADMAP: data-parallel)")
+    parameters (+ the optimizer state when saved) from a checkpoint.
+    Under a process group of n ranks the training is data-parallel (one
+    process per device), every rank from the same seed and batches; the
+    history and the best parameters are the same on every rank.  ``mesh``
+    (JAX's signature) is the data axis: its size must be the group's."""
+    if mesh is not None and mesh.size != world_size():
+        raise ValueError(
+            f"a {mesh.size}-device training mesh runs one process per device, but the process group has "
+            f"{world_size()}: launch with EVI_DISTRIBUTED=1 torchrun --nproc-per-node {mesh.size} (or the EVI_* "
+            "variables)")
     first = next(iter(train_batches(0)))
     state, tx = create_train_state(model, first, cfg, seed=seed, tables=tables, device=device)
     if resume_from:

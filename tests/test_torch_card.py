@@ -1,5 +1,6 @@
-"""The hand-written kernels on the card against their plain versions, the
-training steps and the GFlowNet's sample-then-score and "dots" remat on the
+"""The hand-written kernels on the card against their plain versions (also
+per shard and per mesh entry: the sharded index build and pooled query, the
+data-parallel serve), the training steps and the GFlowNet's sample-then-score and "dots" remat on the
 card, and the build's gte encoder and native BFS library on the card's
 machine; one test (the port's task list) needs no card.
 
@@ -254,6 +255,78 @@ def test_pooled_kernels_reject_what_they_cannot_take(cuda):
     with pytest.raises(TypeError):
         sk.score_bidirectional(bundle, q, index.head_repr.float(), index.rel_repr, index.tail_repr,
                                index.struct_raw)
+
+
+@pytest.mark.parametrize("entries", [1, 4])
+def test_sharded_index_build_on_the_card(cuda, entries):
+    """``build_triple_index_sharded`` over ``entries`` shards of one card
+    against ``build_triple_index`` (rtol 1e-5 / atol 1e-6,
+    ``tests/test_sharded.py:236-238``)."""
+    from evi_rag_tpu_torch.ops.query import build_triple_index, build_triple_index_sharded
+    from evi_rag_tpu_torch.parallel.mesh import make_mesh
+    from evi_rag_tpu_torch.testing import random_bundle
+
+    v, r, m, d = 4096, 64, 2048, 128
+    bundle = {"features": bundle_from_numpy(random_bundle(d, seed=3)["features"], device=cuda)}
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    tables = dict(entity_emb=torch.randn(v, d, device=cuda, generator=gen),
+                  relation_emb=torch.randn(r, d, device=cuda, generator=gen),
+                  nontext_mask=torch.rand(v, device=cuda, generator=gen) < 0.1,
+                  heads=torch.randint(0, v, (m,), device=cuda, generator=gen),
+                  rels=torch.randint(0, r, (m,), device=cuda, generator=gen),
+                  tails=torch.randint(0, v, (m,), device=cuda, generator=gen),
+                  struct_raw=torch.randn(m, 20, device=cuda, generator=gen))
+    want = build_triple_index(bundle, **tables, device=cuda)
+    got = build_triple_index_sharded(bundle, mesh=make_mesh(devices=[cuda] * entries), **tables)
+    for name in ("head_repr", "rel_repr", "tail_repr", "struct_raw"):
+        np.testing.assert_allclose(getattr(got, name).cpu().numpy(), getattr(want, name).cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+def test_sharded_fused_query_on_the_card(cuda):
+    """``query_topk_sharded_fused`` over 4 shards of one card launches kernel
+    2 once per shard and gives the unsharded kernel's top-k (per-candidate
+    scores do not depend on the shard), held to the plain version."""
+    from evi_rag_tpu_torch.ops.query import query_topk_sharded_fused
+    from evi_rag_tpu_torch.parallel.mesh import make_mesh
+
+    d = 128
+    bundle = _bundle(d, d, 20, seed=21)
+    q, index = _pooled_case(cuda, 5, 4096, d, seed=21)
+    before = sk.query_topk_fused.launches
+    vals, ids = query_topk_sharded_fused(bundle, q, index, mesh=make_mesh(devices=[cuda] * 4), k=20)
+    torch.cuda.synchronize()
+    assert sk.query_topk_fused.launches == before + 4
+    uvals, uids = sk.query_topk_fused(bundle, q, index, k=20)
+    np.testing.assert_allclose(vals.cpu().numpy(), uvals.cpu().numpy(), rtol=0, atol=1e-5)
+    assert all(set(a) == set(b) for a, b in zip(ids.tolist(), uids.tolist()))
+    args = (bundle, q, index.head_repr, index.rel_repr, index.tail_repr, index.struct_raw)
+    _hold_topk(vals, ids, sk.fused_scores_reference(*args), 20, 1e-3)
+
+
+def test_data_parallel_serve_on_the_card(cuda):
+    """``serve_split`` over two mesh entries of one card: kernel 3 runs on
+    each entry (twice the launches of the single-device serve) and every
+    question gets the single-device serve's ids and scores."""
+    from evi_rag_tpu_torch.data.synthetic import make_synthetic_dataset
+    from evi_rag_tpu_torch.parallel.mesh import make_mesh
+    from evi_rag_tpu_torch.serving import serve_split
+    from evi_rag_tpu_torch.testing import random_bundle
+
+    ds = make_synthetic_dataset(num_samples=40, emb_dim=64, max_nodes=64, seed=5)
+    bundle = {"features": bundle_from_numpy(random_bundle(64, seed=5)["features"], device=cuda)}
+    kw = dict(entity_emb=ds.entity_emb, relation_emb=ds.relation_emb, question_emb=ds.question_emb, k=20,
+              num_rounds=2, num_reverse_rounds=2, fused_threshold=32, group_size=8)
+    before = sk.per_question_topk.launches
+    single, stats = serve_split(bundle, ds.samples, device=cuda, **kw)
+    mid = sk.per_question_topk.launches
+    dp, dp_stats = serve_split(bundle, ds.samples, mesh=make_mesh(devices=[cuda] * 2), **kw)
+    assert mid - before == stats.num_groups + 1 and dp_stats.num_groups == stats.num_groups
+    assert sk.per_question_topk.launches - mid == 2 * (stats.num_groups + 1)
+    for a, b in zip(single, dp):
+        assert a.sample_id == b.sample_id
+        np.testing.assert_array_equal(a.edge_ids, b.edge_ids)
+        np.testing.assert_array_equal(a.scores, b.scores)
 
 
 def test_edge_struct_features_repeat_bit_for_bit(cuda):

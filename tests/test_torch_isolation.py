@@ -157,8 +157,15 @@ def test_training_entry_points_raise_without_gpu(monkeypatch, tmp_path):
         fit(model, RetrieverTrainConfig(), lambda epoch: iter([None]), lambda: iter(()))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         create_train_state(model, None, RetrieverTrainConfig())
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        fit(model, RetrieverTrainConfig(), lambda epoch: iter([None]), lambda: iter(()), mesh=object())
+    # Data-parallel training runs one process per device: the default mesh
+    # needs a card, and a two-entry mesh in one process names the launch.
+    from evi_rag_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+        fit(model, RetrieverTrainConfig(), lambda epoch: iter([None]), lambda: iter(()),
+            mesh=make_mesh(devices=["cpu"] * 2), device="cpu")
 
 
 def test_gflownet_entry_points_raise_without_gpu(monkeypatch, tmp_path):
@@ -183,20 +190,33 @@ def test_gflownet_entry_points_raise_without_gpu(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("knob", ["sample_then_score", "remat_dots", "stacked"])
 def test_unported_gflownet_knobs_raise(knob):
-    """Stacked (data-parallel) agent batches are not ported: they raise.
-    The two-pass rollout and the 'dots' remat policy are ported: their
-    configs build (``tests/test_torch_gflownet_sts.py`` holds them to JAX)."""
+    """None of these knobs raises any more.  The two-pass rollout and the
+    'dots' remat policy are ported: their configs build
+    (``tests/test_torch_gflownet_sts.py`` holds them to JAX).  A stacked
+    (data-parallel) agent batch runs shard by shard: its loss is the mean of
+    the shards' flat losses under the same draws
+    (``tests/test_torch_dp_train.py`` holds the step to JAX's)."""
     import dataclasses
 
-    from evi_rag_tpu_torch.models.batches import AgentBatch
-    from evi_rag_tpu_torch.train.gflownet_trainer import GFlowNetConfig, GFlowNetModules, build_modules, rollout_losses
+    from evi_rag_tpu_torch.testing import agent_inputs, random_bundle
+    from evi_rag_tpu_torch.train.gflownet_trainer import (
+        GFlowNetConfig, GFlowNetModules, build_modules, bundle_on, init_gflownet_params, rollout_losses,
+        train_rollout_draws)
 
     cfg = GFlowNetConfig(hidden_dim=8)
     if knob == "stacked":
-        fields = {f.name: None for f in dataclasses.fields(AgentBatch)}
-        batch = AgentBatch(**{**fields, "question_emb": torch.zeros(2, 3, 8)})
-        with pytest.raises(NotImplementedError, match="stacked"):
-            rollout_losses(build_modules(cfg), {}, batch, cfg, num_rollouts=1, bc_weight=0.0, temperature=1.0)
+        cfg = dataclasses.replace(cfg, max_steps=2, num_train_rollouts=2, dropout=0.0)
+        modules = build_modules(cfg)
+        init_gflownet_params(cfg, modules, seed=0, device="cpu")
+        batch = agent_inputs(8, 4, seed=0, shards=2)
+        gen = torch.Generator().manual_seed(0)
+        draws = [train_rollout_draws(cfg, batch.shard(i), gen) for i in range(2)]
+        kw = dict(num_rollouts=2, bc_weight=0.5, temperature=1.0, train=True)
+        bundle = bundle_on(random_bundle(8), torch.device("cpu"))
+        loss, metrics = rollout_losses(modules, bundle, batch, cfg, draws=draws, **kw)
+        flat = [rollout_losses(modules, bundle, batch.shard(i), cfg, draws=draws[i], **kw) for i in range(2)]
+        assert torch.equal(loss, (flat[0][0] + flat[1][0]) / 2)
+        assert metrics["answer_hit_graphs"].shape[0] == 2 and metrics["answer_hit"].ndim == 0
         return
     cfg = dataclasses.replace(cfg, **({"sample_then_score": True} if knob == "sample_then_score"
                                       else {"remat_policy": "dots"}))

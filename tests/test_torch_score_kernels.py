@@ -143,3 +143,37 @@ def test_wrapper_rejects_other_devices(case):
     meta = [torch.empty(x.shape, device="meta") for x in (a["q"], a["h"], a["r"], a["t"], a["s"])]
     with pytest.raises(ValueError, match="cuda or cpu"):
         sk.per_question_topk(tb, *meta, torch.empty(G, device="meta"), k=K)
+
+
+def test_launches_enter_the_device_context_of_their_input(monkeypatch):
+    """A launch runs with its tensors' device as the current device (a
+    shard on ``cuda:1`` must not launch on ``cuda:0``): the C entry is called
+    inside ``torch.cuda.device(<the input's device>)``.  With a stand-in
+    library and device context, on ``meta`` tensors (no card here)."""
+    import ctypes
+
+    current = []
+
+    class Context:
+        def __init__(self, dev):
+            self.dev = torch.device(dev)
+
+        def __enter__(self):
+            current.append(self.dev)
+
+        def __exit__(self, *exc):
+            current.pop()
+
+    seen = []
+
+    class Library:
+        def sb_select(self, *args):
+            seen.append(list(current))
+            return 0
+
+    monkeypatch.setattr(torch.cuda, "device", Context)
+    monkeypatch.setattr(sk, "_lib", lambda source: Library())
+    monkeypatch.setattr(sk, "_stream", lambda dev: ctypes.c_void_p(0))
+    sk._launch(sk.SCORE_SOURCE, "sb_select", "select", torch.device("cuda", 1))
+    sk._select(torch.empty(2, 8, device="meta"), 4, "select")
+    assert seen == [[torch.device("cuda", 1)], [torch.device("meta")]] and not current

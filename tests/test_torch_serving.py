@@ -206,8 +206,17 @@ def test_dispatch_ladder_and_window_budget(small_ds, monkeypatch):
 
 
 def test_mesh_serving_not_ported(small_ds):
+    """Data-parallel serving is ported: over a mesh of two CPU entries every
+    question comes back with the single-device serve's ids and scores
+    (``tests/test_torch_dp_serve.py`` holds it to JAX's)."""
+    from evi_rag_tpu_torch.parallel.mesh import make_mesh
+
     _, tb = _bundles(3)
-    with pytest.raises(NotImplementedError):
-        tserve.serve_split(tb, small_ds.samples, entity_emb=small_ds.entity_emb,
-                           relation_emb=small_ds.relation_emb, question_emb=small_ds.question_emb,
-                           k=10, num_rounds=2, num_reverse_rounds=2, mesh=object(), device="cpu")
+    kw = dict(entity_emb=small_ds.entity_emb, relation_emb=small_ds.relation_emb,
+              question_emb=small_ds.question_emb, k=10, num_rounds=2, num_reverse_rounds=2, group_size=4)
+    single, _ = tserve.serve_split(tb, small_ds.samples, device="cpu", **kw)
+    dp, stats = tserve.serve_split(tb, small_ds.samples, mesh=make_mesh(devices=["cpu"] * 2), **kw)
+    assert stats.num_questions == len(small_ds.samples)
+    for a, b in zip(single, dp):
+        np.testing.assert_array_equal(a.edge_ids, b.edge_ids)
+        np.testing.assert_array_equal(a.scores, b.scores)

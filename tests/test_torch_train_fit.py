@@ -287,6 +287,8 @@ def test_train_retriever_task_on_cpu_then_serve(tmp_path):
     (smetrics,) = (tmp_path / "serve_logs").glob("**/metrics.json")
     assert 0.0 <= json.loads(smetrics.read_text())["validation/serve/recall@10"] <= 1.0
 
-    with pytest.raises(ConfigError, match="num_shards"):
+    # num_shards > 1 in one process: data-parallel training runs one process
+    # per device, and the error names the launch.
+    with pytest.raises(ConfigError, match="num_shards=2 > available devices 1.*torchrun --nproc-per-node 2"):
         tcli.task_train_retriever.__wrapped__(
             {"device": "cpu", "retriever": {"train": {"num_shards": 2}}}, run_dir=tmp_path)
