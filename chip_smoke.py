@@ -87,6 +87,24 @@ Phases, each printed as it runs:
    reasoner (oracle, mock triplets with ``configs/reasoner/ollama.yaml``'s
    nine windows) over 8a's validation store: records/s and the share of
    ``count_tokens``;
+debug. ``experiment=debug`` (``extras.deterministic`` and
+   ``extras.debug_nans``, ``utils/extras.py``) through the CLI, every run a
+   fresh process (deterministic mode needs ``CUBLAS_WORKSPACE_CONFIG``
+   before the process's first cuBLAS call; ``debug_child``).  (a)
+   ``train_retriever retriever=production``, 1 epoch on phase 7a's split:
+   without extras, with each mode alone and twice under the profile, whose
+   two checkpoint digests must be equal; step ms of each.  (b)
+   ``train_gflownet`` at hidden 1024 on 8a's stores, 1 epoch, without extras
+   and twice under the profile (equal digests); step ms.  (c) ``serve`` of
+   (a)'s checkpoint on phase 4's split under the profile and without it:
+   ids and scores bit for bit equal, through kernel 3.  (d) under both
+   modes, kernels 1 and 2 launched twice on phase 6's inputs (16 queries)
+   give bit for bit the same output, kernel 3 its pinned digest; a NaN made
+   in a backward op raises.  (e) a NaN learning rate raises
+   ``FloatingPointError`` in the first step (non-zero exit, no
+   ``ckpt/best``); a NaN row of W1 in the checkpoint raises it from kernel
+   3's wrapper, which names the kernel.  (d) and (e) run at once.  Each
+   run's stdout and stderr under ``chiprun_out/chip_smoke_debug/``;
 9. the data build (no kernel lies on it: the gte GEMMs and attention are
    library calls).  9a: ``csrc/graphcore.cpp`` built with g++ and held to
    the numpy BFS engine on random graphs in both path modes.  9b: gte-large
@@ -143,6 +161,13 @@ per-question one at phase 3's G = 16, M = 2048 input, where the full build
 is also timed with one cluster per (question, tile) against its persistent
 clusters (and must give bitwise the same output).  The switched builds
 compute wrong scores; they only show where the time goes.
+
+``python3 chip_smoke.py --crossover`` runs only the card's counterpart of
+``scripts/measure_fused_crossover.py``: ``serve_window`` through kernel 3
+and through the plain bf16 scorer on the same feeds (two buckets of 16
+questions, D = 1024) at m_pad 8 .. 4096, wall ms per call, and the smallest
+m_pad from which the kernel is faster at every larger width
+(``serve.fused_threshold`` stays at the JAX package's 256).
 
 Then a line ``{"kernels": [...]}``, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero without
@@ -678,14 +703,16 @@ def hold_to_plain(vals, ids, plain, k: int) -> tuple[float, int]:
     return max_err, differing
 
 
-def phase_pooled(bundle_np):
+def pooled_inputs(bundle_np, dev):
+    """Phase 6's inputs: the bundle on ``dev``, the bf16 index of POOLED_M
+    triples built on the card (and its build seconds), POOLED_B queries and
+    the prepared weights."""
     import torch
 
     from evi_rag_tpu_torch.ops import score_kernels as sk
     from evi_rag_tpu_torch.ops.query import build_triple_index
     from evi_rag_tpu_torch.train.checkpoint import bundle_from_numpy
 
-    dev = torch.device("cuda", torch.cuda.current_device())
     bundle = {"features": bundle_from_numpy(bundle_np["features"], device=dev)}
     gen = torch.Generator(device=dev).manual_seed(13)
     tables = dict(
@@ -703,10 +730,17 @@ def phase_pooled(bundle_np):
     index = build_triple_index(bundle, **tables, device=dev)
     torch.cuda.synchronize()
     index_build_s = time.perf_counter() - t0
-    del tables
     idx = index.to(dtype=torch.bfloat16)  # cast once, as bench.py's index_dtype=bf16
-    del index
-    w = sk.prep_weights(bundle["features"])
+    return bundle, idx, q, sk.prep_weights(bundle["features"]), index_build_s
+
+
+def phase_pooled(bundle_np):
+    import torch
+
+    from evi_rag_tpu_torch.ops import score_kernels as sk
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    bundle, idx, q, w, index_build_s = pooled_inputs(bundle_np, dev)
     log(f"[6 pooled] index: {POOLED_M} triples over {ENTITIES} entities / {RELATIONS} relations, "
         f"D = {D}, built on the card in index_build_s {index_build_s:.4f}")
 
@@ -1114,7 +1148,6 @@ def phase_gflownet(smi: str, retriever_ckpt: str, load_split):
     with mock.patch.object(cli, "_load_split", load_split):
         out = phase_gflownet_realistic(smi, retriever_ckpt)
     out["chain"] = phase_gflownet_chain(str(ROOT / "configs"))
-    shutil.rmtree(GFN_WORK)  # ~100 MB of stores, records and checkpoints
     return out
 
 
@@ -2390,6 +2423,367 @@ def phase_dp_train() -> dict:
     return out
 
 
+# The debug phase: experiment=debug (extras.deterministic + extras.debug_nans)
+# through the CLI.  Every run is a process of its own: deterministic mode
+# needs CUBLAS_WORKSPACE_CONFIG before the process's first cuBLAS call.
+DEBUG_DIR = OUT_DIR / "chip_smoke_debug"  # the runs' logs stay
+DEBUG_WORK = DEBUG_DIR / "work"           # their checkpoints, removed when the phase ends
+DEBUG_B = 16               # (d): queries of phase 6's inputs
+NAN_ROW = 5                # (e): the row of W1 set to NaN (the inter block, which kernel 3 reads)
+DEBUG_CHILD = "import sys, chip_smoke; sys.exit(chip_smoke.debug_child(sys.argv[1]))"
+
+
+def debug_child(spec: str) -> int:
+    """One run of the debug phase, in a fresh process.  ``spec`` is JSON:
+    ``{"argv": [...]}`` runs the CLI on the realistic splits
+    (``realistic_loader``), with the task and each train step timed (wall
+    clock between CUDA synchronisations) and the ids and scores that
+    ``serve_split`` returns hashed; ``{"kernels": true}`` runs ``debug_kernels``.  Prints
+    ``DEBUG_CHILD <json>`` as its last stdout line, also when the run raises
+    (the exception then ends the process with a non-zero code)."""
+    import hashlib
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from evi_rag_tpu_torch import cli, serving
+    from evi_rag_tpu_torch.ops import score_kernels as sk
+    from evi_rag_tpu_torch.train import gflownet_trainer as gt
+    from evi_rag_tpu_torch.train import retriever_trainer as rt
+
+    spec = json.loads(spec)
+    if spec.get("kernels"):
+        print("DEBUG_CHILD " + json.dumps(debug_kernels()), flush=True)
+        return 0
+    out: dict = {"steps_ms": [], "serve_sha256": None}
+
+    def timed(make):
+        def made(*a, **kw):
+            step = make(*a, **kw)
+
+            def run(*sa, **skw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = step(*sa, **skw)
+                torch.cuda.synchronize()
+                out["steps_ms"].append((time.perf_counter() - t) * 1e3)
+                return res
+            return run
+        return made
+
+    split_fn = serving.serve_split
+
+    def hashed(*a, **kw):
+        results, stats = split_fn(*a, **kw)
+        h = hashlib.sha256()
+        for r in results:
+            h.update(r.sample_id.encode())
+            h.update(np.asarray(r.edge_ids, np.int64).tobytes())
+            h.update(np.asarray(r.scores, np.float32).tobytes())
+        out.update(serve_sha256=h.hexdigest(), serve_qps=stats.queries_per_s)
+        return results, stats
+
+    task = cli.TASKS[spec["argv"][0]]
+
+    def task_timed(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return task(*a, **kw)
+        finally:
+            out["task_s"] = time.perf_counter() - t
+
+    reset_launches()
+    with mock.patch.object(cli, "_load_split", realistic_loader()), \
+            mock.patch.object(rt, "make_train_step", timed(rt.make_train_step)), \
+            mock.patch.object(gt, "make_gfn_train_step", timed(gt.make_gfn_train_step)), \
+            mock.patch.object(serving, "serve_split", hashed), \
+            mock.patch.dict(cli.TASKS, {spec["argv"][0]: task_timed}):
+        try:
+            return cli.main(spec["argv"])
+        finally:
+            out["pqt_launches"] = sk.per_question_topk.launches
+            print("DEBUG_CHILD " + json.dumps(out), flush=True)
+
+
+def debug_kernels() -> dict:
+    """(d): under both modes (``utils.extras``), each pooled kernel launched
+    twice on phase 6's inputs (``DEBUG_B`` queries), kernel 3 on its pinned
+    input (``PQT_DIGEST``); a NaN made in a backward op."""
+    import torch
+
+    from evi_rag_tpu_torch.ops import score_kernels as sk
+    from evi_rag_tpu_torch.testing import PQT_DIGEST, pqt_digest
+    from evi_rag_tpu_torch.utils import extras
+
+    cfg = {"extras": {"deterministic": True, "debug_nans": True}}
+    extras.prepare_process(cfg)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    bundle, idx, q, w, _ = pooled_inputs(make_bundle(D, H, S, seed=11), dev)
+    q = q[:DEBUG_B].contiguous()
+    rows = (idx.head_repr, idx.rel_repr, idx.tail_repr, idx.struct_raw)
+    calls = {"score_bidirectional": lambda: (sk.score_bidirectional(bundle, q, *rows, weights=w),),
+             "query_topk_per_query": lambda: sk.query_topk_per_query(bundle, q, idx, k=K, weights=w),
+             "query_topk_fused": lambda: sk.query_topk_fused(bundle, q, idx, k=K, weights=w)}
+    out: dict = {}
+    reset_launches()
+    with extras.apply_extras(cfg):
+        for name, fn in calls.items():
+            first = [x.clone() for x in fn()]
+            again = fn()
+            torch.cuda.synchronize()
+            out[name] = all(torch.equal(a, b) for a, b in zip(first, again))
+        out["pqt_digest_equal"] = pqt_digest(dev) == PQT_DIGEST
+        out["launches"] = {n: getattr(sk, n).launches
+                           for n in ("score_bidirectional", "query_topk_fused", "per_question_topk")}
+        a = torch.zeros(3, device=dev, requires_grad=True)
+        try:
+            (a * 0).sqrt().sum().backward()
+            out["backward_nan"] = None
+        except FloatingPointError as e:
+            out["backward_nan"] = str(e)
+    return out
+
+
+def run_debug_children(runs: dict) -> dict:
+    """Each ``label: (spec, fail)`` of ``runs`` as ``debug_child`` in a fresh
+    process, all started at once (stdout to DEBUG_DIR/<label>.log, stderr to
+    <label>.err); returns each child's record with its exit code, wall
+    seconds and last stderr line.  A run that exits 0 where it should fail,
+    or the other way round, fails the phase; every child is ended first."""
+    procs = {}
+    try:
+        for label, (spec, _) in runs.items():
+            with open(DEBUG_DIR / f"{label}.log", "w") as fo, open(DEBUG_DIR / f"{label}.err", "w") as fe:
+                procs[label] = (subprocess.Popen([sys.executable, "-c", DEBUG_CHILD, json.dumps(spec)], cwd=ROOT,
+                                                 stdout=fo, stderr=fe, text=True), time.perf_counter())
+        recs = {}
+        for label, (p, t) in procs.items():
+            rc = p.wait(timeout=900)
+            wall = time.perf_counter() - t
+            stdout = (DEBUG_DIR / f"{label}.log").read_text()
+            stderr = (DEBUG_DIR / f"{label}.err").read_text()
+            rec = next((json.loads(ln.split(" ", 1)[1]) for ln in reversed(stdout.splitlines())
+                        if ln.startswith("DEBUG_CHILD ")), {})
+            err = [ln for ln in stderr.splitlines() if ln.strip()]
+            rec.update(rc=rc, wall_s=wall, error=err[-1] if err else "")
+            if (rc == 0) == runs[label][1]:
+                raise AssertionError(f"debug {label}: exit code {rc} (expected {'non-zero' if runs[label][1] else 0});"
+                                     f" stderr tail: {stderr[-2000:]}")
+            recs[label] = rec
+        return recs
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def run_debug_child(label: str, spec: dict, *, fail: bool = False) -> dict:
+    """One ``debug_child`` run alone (see ``run_debug_children``)."""
+    return run_debug_children({label: (spec, fail)})[label]
+
+
+def median(xs) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def phase_debug(smi: str, retriever_ckpt: str) -> dict:
+    """The debug phase (see the module docstring): (a) ``train_retriever``
+    at phase 7a's width, 1 epoch, without extras, with each mode alone and
+    twice under ``experiment=debug``; (b) ``train_gflownet`` at 8b's width on
+    8a's stores, 1 epoch, without extras and twice under the profile; (c)
+    ``serve`` of (a)'s checkpoint under the profile and without it; (d)
+    ``debug_kernels``; (e) a NaN learning rate and a NaN row of W1."""
+    DEBUG_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        return debug_runs(smi, retriever_ckpt)
+    finally:
+        shutil.rmtree(DEBUG_WORK, ignore_errors=True)  # the runs' checkpoints
+
+
+def debug_runs(smi: str, retriever_ckpt: str) -> dict:
+    """(a)-(e) of ``phase_debug``."""
+    import numpy as np
+
+    from evi_rag_tpu_torch.train.checkpoint import flatten_tree, load_checkpoint, save_checkpoint, unflatten_tree
+
+    common = ["--configs-dir", str(ROOT / "configs"), "device=cuda", "extras.print_config=false"]
+    modes = {"off": [], "deterministic": ["extras.deterministic=true"], "debug_nans": ["extras.debug_nans=true"],
+             "debug1": ["experiment=debug"], "debug2": ["experiment=debug"]}
+    out: dict = {"nvidia_smi": smi}
+
+    def argv(task: str, name: str, extra: list) -> list:
+        return [task, *common, *extra, f"paths.log_dir={DEBUG_DIR / 'logs' / name}"]
+
+    def walls(runs: dict) -> str:
+        return ", ".join(f"{n} {r['wall_s']:.1f} (task {r['task_s']:.1f})" for n, r in runs.items())
+
+    # (a) train_retriever, 1 epoch at production width.
+    train = ["retriever=production", "retriever.train.max_epochs=1", "retriever.train.optimizer.schedule=constant"]
+    a = {}
+    for name, extra in modes.items():
+        a[name] = run_debug_child(f"a_{name}", {"argv": argv("train_retriever", f"a_{name}", [
+            *train, *extra, f"retriever.train.ckpt_dir={DEBUG_WORK / f'a_{name}'}"])})
+        a[name]["digest"] = latest_metrics(DEBUG_DIR / "logs" / f"a_{name}")["best_ckpt_sha256"]
+    if a["debug1"]["digest"] != a["debug2"]["digest"]:
+        raise AssertionError(f"debug a: two deterministic runs give digests {a['debug1']['digest']} and "
+                             f"{a['debug2']['digest']}")
+    ms = {n: median(r["steps_ms"]) for n, r in a.items()}
+    log(f"[debug a] train_retriever retriever=production (D = H = {D}, bf16, batch {TRAIN_BATCH}), 1 epoch of "
+        f"{TRAIN_QUESTIONS} questions ({len(a['off']['steps_ms'])} steps), a fresh process each: step ms median "
+        f"(wall clock between syncs) off {ms['off']:.2f}, deterministic {ms['deterministic']:.2f}, debug_nans "
+        f"{ms['debug_nans']:.2f}, both {ms['debug1']:.2f} / {ms['debug2']:.2f} ({ms['debug1'] / ms['off']:.2f}x); "
+        f"experiment=debug twice: digest {a['debug1']['digest'][:16]}... both runs; the run without extras "
+        f"{'has the same digest' if a['off']['digest'] == a['debug1']['digest'] else 'has another digest'}; "
+        f"process wall s {walls(a)}")
+    out["a"] = dict(step_ms=ms, digests={n: r["digest"] for n, r in a.items()}, steps=len(a["off"]["steps_ms"]),
+                    wall_s={n: r["wall_s"] for n, r in a.items()}, task_s={n: r["task_s"] for n, r in a.items()})
+
+    # (b) train_gflownet, 1 epoch at hidden 1024 on phase 8a's stores.
+    gfn = [f"gflownet.hidden_dim={H}", f"retriever.ckpt={retriever_ckpt}",
+           f"gflownet.g_agent_dir={GFN_WORK / 'art' / 'g_agent'}", "gflownet.max_epochs=1"]
+    b = {}
+    for name in ("off", "debug1", "debug2"):
+        ck = DEBUG_WORK / f"b_{name}"
+        b[name] = run_debug_child(f"b_{name}", {"argv": argv("train_gflownet", f"b_{name}", [
+            *gfn, *modes[name], f"gflownet.ckpt_dir={ck}"])})
+        b[name]["digest"] = json.loads((ck / "best" / "meta.json").read_text())["params_sha256"]
+    if b["debug1"]["digest"] != b["debug2"]["digest"]:
+        raise AssertionError(f"debug b: two deterministic runs give digests {b['debug1']['digest']} and "
+                             f"{b['debug2']['digest']}")
+    gms = {n: median(r["steps_ms"]) for n, r in b.items()}
+    log(f"[debug b] train_gflownet (hidden {H}, batch {GFN_BATCH}, {GFN_ROLLOUTS} rollouts), 1 epoch on 8a's train "
+        f"store ({len(b['off']['steps_ms'])} steps): step ms median off {gms['off']:.2f}, experiment=debug "
+        f"{gms['debug1']:.2f} / {gms['debug2']:.2f} ({gms['debug1'] / gms['off']:.2f}x); experiment=debug twice: "
+        f"digest {b['debug1']['digest'][:16]}... both runs; the run without extras "
+        f"{'has the same digest' if b['off']['digest'] == b['debug1']['digest'] else 'has another digest'}; "
+        f"process wall s {walls(b)}")
+    out["b"] = dict(step_ms=gms, digests={n: r["digest"] for n, r in b.items()}, steps=len(b["off"]["steps_ms"]),
+                    wall_s={n: r["wall_s"] for n, r in b.items()}, task_s={n: r["task_s"] for n, r in b.items()})
+
+    # (c) serve (a)'s checkpoint under the profile and without it.
+    ckpt = DEBUG_WORK / "a_debug1" / "best"
+    serve = ["serve.splits=[validation]", f"serve.k={K}", f"retriever.ckpt={ckpt}"]
+    c = {name: run_debug_child(f"c_{name}", {"argv": argv("serve", f"c_{name}", [*serve, *modes[name]])})
+         for name in ("off", "debug1")}
+    if c["off"]["serve_sha256"] != c["debug1"]["serve_sha256"] or min(r["pqt_launches"] for r in c.values()) <= 0:
+        raise AssertionError(f"debug c: serve under experiment=debug {c['debug1']} vs without {c['off']}")
+    log(f"[debug c] serve of (a)'s checkpoint on phase 4's split ({QUESTIONS} questions, k = {K}): ids and scores "
+        f"bit for bit the run without extras (sha256 {c['off']['serve_sha256'][:16]}...), kernel 3 launches "
+        f"{c['debug1']['pqt_launches']} (without extras {c['off']['pqt_launches']}); q/s off "
+        f"{c['off']['serve_qps']}, experiment=debug {c['debug1']['serve_qps']}; task s off {c['off']['task_s']:.1f}, "
+        f"experiment=debug {c['debug1']['task_s']:.1f}")
+    out["c"] = dict(sha256=c["off"]["serve_sha256"], pqt_launches=c["debug1"]["pqt_launches"],
+                    qps={n: r["serve_qps"] for n, r in c.items()}, task_s={n: r["task_s"] for n, r in c.items()})
+
+    # (d) the kernels under both modes, beside (e) planted NaNs: a NaN
+    # learning rate, and a NaN row of W1 (no time of these three is a result).
+    tree, meta = load_checkpoint(ckpt)
+    flat = flatten_tree(tree["params"])
+    (key,) = [k for k in flat if k.endswith("state_net_0/kernel")]
+    w1 = np.array(flat[key])
+    w1[NAN_ROW] = np.nan
+    nan_ckpt = DEBUG_WORK / "e_nan_w1"
+    save_checkpoint(nan_ckpt, unflatten_tree({**flat, key: w1}), meta={"parity_meta": meta["parity_meta"]})
+    ck = DEBUG_WORK / "e_nan_lr"
+    de = run_debug_children({
+        "d_kernels": ({"kernels": True}, False),
+        "e_nan_lr": ({"argv": argv("train_retriever", "e_nan_lr", [
+            *train, "experiment=debug", "retriever.train.optimizer.learning_rate=.nan",
+            f"retriever.train.ckpt_dir={ck}"])}, True),
+        "e_nan_w1": ({"argv": argv("serve", "e_nan_w1", [
+            "serve.splits=[validation]", f"serve.k={K}", f"retriever.ckpt={nan_ckpt}", "experiment=debug"])}, True),
+    })
+    d, e1, e2 = de["d_kernels"], de["e_nan_lr"], de["e_nan_w1"]
+    if not (d["score_bidirectional"] and d["query_topk_per_query"] and d["query_topk_fused"]
+            and d["pqt_digest_equal"] and d["backward_nan"]):
+        raise AssertionError(f"debug d: {d}")
+    log(f"[debug d] under both modes, on phase 6's inputs ({DEBUG_B} queries, M = {POOLED_M}): kernel 1 scores and "
+        f"top-k, kernel 2 top-k each bit for bit equal over two launches; kernel 3 on its pinned input: PQT_DIGEST "
+        f"{d['pqt_digest_equal']}; launches {d['launches']}; a NaN made in backward: \"{d['backward_nan']}\"")
+    out["d"] = d
+    if "FloatingPointError" not in e1["error"] or e1["steps_ms"] or (ck / "best").exists():
+        raise AssertionError(f"debug e: the NaN learning rate gave {e1}")
+    if not e2["error"].startswith("FloatingPointError") or "kernel per_question_topk" not in e2["error"]:
+        raise AssertionError(f"debug e: the NaN row of W1 gave {e2}")
+    log(f"[debug e] NaN learning rate: exit code {e1['rc']} after {len(e1['steps_ms'])} completed steps, no "
+        f"ckpt/best, \"{e1['error']}\"; NaN in row {NAN_ROW} of W1 ({key}), serve experiment=debug: exit code "
+        f"{e2['rc']}, \"{e2['error']}\"; (d) and (e) ran at once in {max(r['wall_s'] for r in de.values()):.1f} s")
+    out["e"] = dict(nan_lr=e1["error"], nan_w1=e2["error"])
+    return out
+
+
+CROSSOVER_WIDTHS = tuple(2 ** i for i in range(3, 13))  # m_pad 8 .. 4096
+CROSSOVER_ITERS = 8
+
+
+def phase_crossover(smi: str) -> list:
+    """``--crossover``: the card's counterpart of
+    ``scripts/measure_fused_crossover.py``.  ``serve_window`` on the same
+    device-resident feeds (two buckets of 16 questions, D = 1024, lengths in
+    (m_pad / 2, m_pad], k = min(100, m_pad)) through kernel 3 and through the
+    plain bf16 scorer, at each m_pad: wall ms per call (CUDA synchronised,
+    median of 4 repetitions of CROSSOVER_ITERS calls, the two paths
+    alternated plain, kernel, kernel, plain)."""
+    import numpy as np
+    import torch
+
+    from evi_rag_tpu_torch.ops.score_kernels import prep_weights
+    from evi_rag_tpu_torch.serving import serve_window
+    from evi_rag_tpu_torch.train.checkpoint import bundle_from_numpy
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    bundle = {"features": bundle_from_numpy(make_bundle(D, H, S)["features"], device=dev)}
+    w = prep_weights(bundle["features"])
+    rng = np.random.default_rng(0)
+    vocab, rels, n_q, b_n, g_n = 4096, 512, 64, 2, 16
+    ent = torch.as_tensor(rng.normal(size=(vocab, D)).astype(np.float32), device=dev)
+    rel = torch.as_tensor(rng.normal(size=(rels, D)).astype(np.float32), device=dev)
+    q_table = torch.as_tensor(rng.normal(size=(n_q, D)).astype(np.float32), device=dev)
+    tables = {False: (ent, rel), True: (ent.to(torch.bfloat16), rel.to(torch.bfloat16))}
+    rows = []
+    for m_pad in CROSSOVER_WIDTHS:
+        n_pad = min(max(64, m_pad // 2), 4096)
+        feed = [torch.as_tensor(x, device=dev) for x in (
+            rng.integers(0, n_pad - 1, size=(b_n, g_n, 2, m_pad)).astype(np.int32),
+            rng.integers(0, vocab, size=(b_n, g_n, n_pad)).astype(np.int32),
+            rng.integers(0, rels, size=(b_n, g_n, m_pad)).astype(np.int32),
+            rng.integers(m_pad // 2 + 1, m_pad + 1, size=(b_n, g_n)).astype(np.int32),
+            (rng.random(size=(b_n, g_n, n_pad)) < 0.05).astype(np.uint8),
+            np.full((b_n, g_n), n_pad, np.int32),
+            rng.integers(0, n_q, size=(b_n, g_n)).astype(np.int32))]
+        k = min(K, m_pad)
+
+        def call(fused: bool):
+            return serve_window(bundle, q_table, *tables[fused], *feed, k=k, num_rounds=2, num_reverse_rounds=2,
+                                dtype=torch.bfloat16, use_fused=fused, weights=w if fused else None)
+
+        times: dict = {False: [], True: []}
+        for fused in (False, True):
+            call(fused)
+        for fused in (False, True, True, False) * 2:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(CROSSOVER_ITERS):
+                call(fused)
+            torch.cuda.synchronize()
+            times[fused].append((time.perf_counter() - t) * 1e3 / CROSSOVER_ITERS)
+        row = dict(m_pad=m_pad, k=k, plain_ms=median(times[False]), kernel_ms=median(times[True]))
+        row["kernel_speedup"] = row["plain_ms"] / row["kernel_ms"]
+        rows.append(row)
+        log(f"[crossover] m_pad {m_pad:5d} (k {k:3d}): plain bf16 scorer {row['plain_ms']:8.3f} ms, kernel 3 "
+            f"{row['kernel_ms']:8.3f} ms per serve_window call ({b_n} x {g_n} questions), kernel speedup "
+            f"{row['kernel_speedup']:.3f}x")
+    first = next((r["m_pad"] for r in rows if all(x["kernel_speedup"] > 1.0 for x in rows if x["m_pad"] >= r["m_pad"])),
+                 None)
+    log(json.dumps({"crossover": rows, "kernel_faster_from_m_pad": first, "fused_threshold_default": 256,
+                    "nvidia_smi": smi}))
+    return rows
+
+
 def wgmma_ptxas(sources) -> list[str]:
     """The ptxas report (registers, spills) of each wgmma kernel of
     ``sources``, with its dynamic shared memory (the same for every mode)."""
@@ -2571,6 +2965,9 @@ def main() -> int:
         phase_device()
         phase_ablation(int(sys.argv[2]) if len(sys.argv) > 2 else 32768)
         return 0
+    if sys.argv[1:2] == ["--crossover"]:
+        phase_crossover(phase_device())
+        return 0
     t_all = time.perf_counter()
     smi = phase_device()
     build_s = phase_build()
@@ -2582,6 +2979,10 @@ def main() -> int:
     train = phase_train(smi)
     load_split = realistic_loader()
     gflownet = phase_gflownet(smi, train["retriever_ckpt"], load_split)
+    try:
+        debug = phase_debug(smi, train["retriever_ckpt"])
+    finally:
+        shutil.rmtree(GFN_WORK)  # phase 8's ~100 MB of stores, records and checkpoints
     native_bfs = phase_native()
     build = phase_build_data(smi, train["retriever_ckpt"])
     sweep = phase_sweep(smi, load_split)
@@ -2600,6 +3001,7 @@ def main() -> int:
         "launches_serving_built_split": build["serve"]["launches"],
         "launches_serving_sweep_best": sweep["serve"]["launches"],
         "launches_dp_serve": multi["11d"]["launches"],
+        "launches_debug_serve": debug["c"]["pqt_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": rep["ms"],
         "plain_ms": rep["plain_ms"],
@@ -2633,7 +3035,7 @@ def main() -> int:
             "shape": f"B={POOLED_B} M={POOLED_M} D={D} H={H} S={S} k={K}",
         })
     details = dict(nvidia_smi=smi, build_s=build_s, kernel=rows, serve=serve, cli=cli_metrics,
-                   pooled=pooled, train=train, gflownet=gflownet, native_bfs=native_bfs, build=build, sweep=sweep,
+                   pooled=pooled, train=train, gflownet=gflownet, debug=debug, native_bfs=native_bfs, build=build, sweep=sweep,
                    multi=multi, kernels=kernels,
                    wall_s=time.perf_counter() - t_all)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(details, indent=2, default=str))

@@ -32,7 +32,10 @@ one process per device: ``EVI_DISTRIBUTED=1 torchrun --nproc-per-node N
 the checkpoints.  ``serve.data_parallel=true`` serves over every local card
 in one process.  ``device=cpu`` runs on the CPU; the default is the GPU
 (``seed_stats``, ``bfs_chains`` and ``reasoner`` run on the host only;
-``sweep`` passes ``device`` to every trial).
+``sweep`` passes ``device`` to every trial).  ``main`` starts as the JAX
+CLI's does (``utils/extras.py``): ``./.env``, then ``extras.platform``,
+``extras.deterministic`` and ``extras.debug_nans`` (``experiment=debug``)
+for the task, and the config tree unless ``extras.print_config=false``.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ import numpy as np
 import torch
 
 from evi_rag_tpu_torch.utils.config import ConfigError, get_dotted, load_config
+from evi_rag_tpu_torch.utils.extras import apply_extras, load_dotenv, prepare_process, print_config_tree
 from evi_rag_tpu_torch.utils.logging import get_logger, save_metrics_json
 from evi_rag_tpu_torch.utils.run_context import make_run_dir, task_wrapper
 
@@ -1159,17 +1163,25 @@ def main(argv: list[str] | None = None) -> int:
     # Python 3 version (plain parse_args leaves them unrecognised on some).
     args = parser.parse_intermixed_args(argv)
 
+    # The JAX CLI's start-up path, in its order, but the config loads before
+    # the process group starts: it touches no device, and deterministic mode
+    # has to set CUBLAS_WORKSPACE_CONFIG before anything reaches cuBLAS.
+    load_dotenv()
+    cfg = load_config(args.configs_dir, args.config or args.task, args.overrides)
+    cfg.setdefault("task_name", args.task)
+    cfg["_configs_dir"] = args.configs_dir
+    prepare_process(cfg)
     # A no-op unless EVI_COORDINATOR_ADDRESS or EVI_DISTRIBUTED is set: see
     # parallel/multihost.py.
     from evi_rag_tpu_torch.parallel.multihost import initialize_distributed
 
     initialize_distributed()
-    cfg = load_config(args.configs_dir, args.config or args.task, args.overrides)
-    cfg.setdefault("task_name", args.task)
-    cfg["_configs_dir"] = args.configs_dir
-    run_dir = make_run_dir(cfg)
-    log.info("task=%s run_dir=%s", args.task, run_dir)
-    TASKS[args.task](cfg, run_dir=run_dir)
+    with apply_extras(cfg):
+        run_dir = make_run_dir(cfg)
+        if (cfg.get("extras") or {}).get("print_config", True):
+            print_config_tree(cfg)
+        log.info("task=%s run_dir=%s", args.task, run_dir)
+        TASKS[args.task](cfg, run_dir=run_dir)
     return 0
 
 

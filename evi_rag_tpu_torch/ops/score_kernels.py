@@ -26,6 +26,10 @@ in the sources for each design and bound.
   ``score_bidirectional``).  For CPU tensors it returns the plain version
   and counts nothing; any other device raises.  There is no fallback from
   a kernel to its plain version.
+* Under ``extras.debug_nans`` a wrapper raises ``FloatingPointError``
+  naming its kernel when a floating output holds a NaN
+  (``utils.extras.check_kernel_outputs``; ``-inf`` passes).  The plain
+  versions run on the CPU under the same check.
 * The plain versions (``*_reference``) repeat the kernels' arithmetic (bf16
   operands, f32 sums, exact erf GELU, the same rounding points) in PyTorch
   ops.  The tests and ``chip_smoke.py`` hold the kernels against them.
@@ -43,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from evi_rag_tpu_torch.ops.nnfn import dense, layernorm, projector
+from evi_rag_tpu_torch.utils.extras import check_kernel_outputs, nan_checks_enabled
 
 KERNEL_SOURCE = "per_question_topk.cu"
 SCORE_SOURCE = "score_bidirectional.cu"
@@ -551,9 +556,11 @@ def per_question_topk(
     """
     dev = _device_of("per_question_topk", head_repr)
     if dev.type == "cpu":
-        return per_question_topk_reference(
+        vals, ids = per_question_topk_reference(
             bundle, q_emb, head_repr, rel_repr, tail_repr, struct_raw, lengths, k=k, weights=weights
         )
+        check_kernel_outputs("per_question_topk", vals)
+        return vals, ids
     g_n, m, d = head_repr.shape
     s = struct_raw.shape[-1]
     bf16 = torch.bfloat16
@@ -584,6 +591,9 @@ def per_question_topk(
             g1 - g0, m, d, h_dim, s, k, PQT_CLUSTERS, _stream(dev),
         )
     per_question_topk.launches += 1
+    if nan_checks_enabled():  # the scores of each question's prefix too: a NaN may rank below -inf
+        valid = torch.arange(m, device=dev)[None, :] < lengths[:, None]
+        check_kernel_outputs("per_question_topk", vals, scores[valid])
     return vals, ids
 
 
@@ -609,12 +619,14 @@ def score_bidirectional(
     """
     dev = _device_of("score_bidirectional", head_repr)
     if dev.type == "cpu":
-        return score_bidirectional_reference(
+        scores = score_bidirectional_reference(
             bundle, q_emb, head_repr, rel_repr, tail_repr, struct_raw, weights=weights
         )
-    scores = _pooled_scores(SCORE_SOURCE, "sb_forward", "score_bidirectional", bundle, q_emb,
-                            (head_repr, rel_repr, tail_repr, struct_raw), weights, fused=False)
-    score_bidirectional.launches += 1
+    else:
+        scores = _pooled_scores(SCORE_SOURCE, "sb_forward", "score_bidirectional", bundle, q_emb,
+                                (head_repr, rel_repr, tail_repr, struct_raw), weights, fused=False)
+        score_bidirectional.launches += 1
+    check_kernel_outputs("score_bidirectional", scores)
     return scores
 
 
@@ -664,11 +676,14 @@ def query_topk_fused(
     dev = _device_of("query_topk_fused", index.head_repr)
     _check_k(k, index.num_candidates)
     if dev.type == "cpu":
-        return query_topk_fused_reference(bundle, q_emb, index, k=k, weights=weights)
+        vals, ids = query_topk_fused_reference(bundle, q_emb, index, k=k, weights=weights)
+        check_kernel_outputs("query_topk_fused", vals)
+        return vals, ids
     rows = (index.head_repr, index.rel_repr, index.tail_repr, index.struct_raw)
     scores = _pooled_scores(POOLED_SOURCE, "pq_forward", "query_topk_fused", bundle, q_emb, rows, weights,
                             fused=True)
     query_topk_fused.launches += 1
+    check_kernel_outputs("query_topk_fused", scores)
     return _select(scores, k, "query_topk_fused")
 
 
