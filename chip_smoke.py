@@ -149,7 +149,37 @@ debug. ``experiment=debug`` (``extras.deterministic`` and
    single-process step; the production retriever's step ms with 2 shards x
    8; ``gather_records`` and the single-process-eval refusal across the
    ranks; the ``train_retriever`` CLI with ``num_shards=2`` (one
-   ``ckpt/best``, the same digest on both ranks).
+   ``ckpt/best``, the same digest on both ranks);
+12. 12a, the kernel route's shape limits: ``serve`` (the CLI, then
+   ``serve_split``) of phase 4's split cut to 64 questions at each shape the
+   kernels refuse (emb_dim 96; S = 36 from 4 + 4 DDE rounds; k = 1500 at
+   D = 1024), random weights: exit 0 with its metrics, jsonl and manifest,
+   one routing line naming the limit, no kernel-3 launch, bit for bit the
+   plain serve (every bucket on the plain bf16 scorer) and held to the
+   plain full ranking by phase 4's rule; phase 4's serve again (17 kernel-3
+   launches, bit for bit) and ``PQT_DIGEST``; kernels 1 and 2 at 70,000
+   queries over 1,024 candidates (two launches each; the rows at both sides
+   of the cut and at the ends held to the plain versions).  12b, the
+   quality lane: the quality gate (``scripts/quality_gate.py``) trained on
+   the card, its floors held; the quality baseline
+   (``scripts/benchmark_quality.py``) at seed 0 held to the CPU seed-spread
+   bar (``QUALITY_BAR``); ``eval_retriever`` of the baseline's retriever
+   on the card against the CPU at f32 (metrics within 1e-4, ranked edges
+   equal by the near-tie rule).
+
+``python3 chip_smoke.py --quality`` runs only the WebQSP-scale chain of
+``scripts/run_webqsp_synth_hw.sh`` on the card: ``testing.synthetic_rows``'
+WebQSP preset (2826 / 246 / 1628 questions) built with the hash encoder at
+D = 1024 (``read_raw_rows`` + ``build_from_samples``), then the port's CLI
+under ``experiment=webqsp_synth_hw`` with 8 retriever and 2 GFlowNet epochs:
+train_retriever, eval_retriever over both dataset variants,
+train_gflownet, eval_gflownet (25 rollouts), reasoner (oracle) and serve
+(k = 100, kernel 3).  Every stage must exit 0 and write its manifest; it
+prints each stage's wall seconds and round 4's metrics
+(``docs/RESULTS_synthetic.md``) beside the TPU run's values (~12.5 min on
+the H100; the dataset, checkpoints and artifacts go to
+``chiprun_out/chip_smoke_quality/work/`` and are removed when the chain
+ends).
 
 ``python3 chip_smoke.py --ablation [M]`` runs only an ablation of the three
 wgmma kernels instead: each source built again with a switch of
@@ -2948,6 +2978,490 @@ def launch_device_ms(fn, calls: int) -> dict[str, float]:
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
+# Phase 12: the kernel route's shape limits (12a) and the quality lane on the
+# card (12b); ``--quality`` runs the WebQSP-scale chain at D = 1024.
+ROUTE_DIR = OUT_DIR / "chip_smoke_route"   # 12a: the CLI runs' logs stay
+ROUTE_QUESTIONS = 64        # 12a: the realistic split (seed 7) cut to 4 groups of 16
+# (label, emb_dim, hidden, DDE rounds each way, k, the limit the router names)
+ROUTE_CASES = (
+    ("emb_dim 96", 96, H, 2, K, "D=96: kernel needs D % 64 == 0"),
+    ("S = 36", D, H, 4, K, "S=36: kernel needs S <= 32"),
+    ("k = 1500", D, H, 2, 1500, "k=1500: kernel needs 1 <= k <= 1024"),
+)
+ROUTE_B, ROUTE_M = 70_000, 1024   # 12a: pooled queries past one launch's 65,535
+ROUTE_ROWS = (0, 1, 2, 3, 65531, 65532, 65533, 65534, 65535, 65536, 65537, 65538, 69996, 69997, 69998, 69999)
+QUALITY_DIR = OUT_DIR / "chip_smoke_quality"  # 12b and --quality: logs stay
+QUALITY_WORK = QUALITY_DIR / "work"           # checkpoints, stores and artifacts, removed when a phase ends
+# 12b: the port's quality baseline at seed 0 must lie inside the bar that
+# JAX's seed spread (seeds 0-2, the CPU, ``tests/test_torch_quality_baseline.py``)
+# sets: [min - (max - min) - 0.03, max + (max - min) + 0.03].
+QUALITY_BAR = {
+    "edge/recall@10": (0.7256818183511495, 0.846030849236995),
+    "answer/reachability@10": (0.5325, 0.78),
+    "oracle/answer_hit@10": (0.68875, 0.93625),
+    "gflownet/answer_hit@4": (0.50125, 0.74875),
+}
+EVAL_ATOL = 1e-4            # 12b: eval_retriever metrics, the card vs the CPU at f32
+# --quality: round 4 of docs/RESULTS_synthetic.md (JAX, TPU v5e): quality
+# values to set the card's beside, never times.
+ROUND4 = {
+    "train_retriever answer/reachability@100 (validation)": 0.894,
+    "eval edge/recall@10 train / validation / test": (0.553, 0.537, 0.539),
+    "eval edge/recall@100": (0.803, 0.804, 0.810),
+    "eval answer/reachability@100": (0.919, 0.894, 0.920),
+    "eval answer_recall@100": (0.877, 0.855, 0.881),
+    "eval edge/score_margin": (-8.72, -9.00, -8.41),
+    "eval edge/margin_positive_rate": (0.231, 0.187, 0.205),
+    "eval ranking/mrr": (0.745, 0.688, 0.671),
+    "eval ranking/ndcg@10": (0.645, 0.599, 0.592),
+    "eval_gflownet answer_hit@25 validation / test": (0.65, 0.67),
+    "eval_gflownet test answer_hit@1 / @10 / @25": (0.24, 0.53, 0.67),
+    "reasoner oracle hit@100 validation / test": (0.83, 0.81),
+    "serve recall@100 (validation + test)": 0.81,
+}
+
+
+def phase_route(smi: str, bundle_np, serve_ctx) -> dict:
+    """12a: ``serve`` (the CLI, then ``serve_split``) of a realistic split at
+    each shape the kernels refuse, held to the plain serve; phase 4's serve
+    again (17 kernel-3 launches, bit for bit) and ``PQT_DIGEST``; kernels 1
+    and 2 over more queries than one launch takes."""
+    import torch
+
+    from evi_rag_tpu_torch.testing import PQT_DIGEST, pqt_digest
+
+    out = {"nvidia_smi": smi, "serve": {case[0]: route_serve(*case) for case in ROUTE_CASES}}
+    out["phase4"] = route_phase4(serve_ctx)
+    digest = pqt_digest(torch.device("cuda"))
+    if digest != PQT_DIGEST:
+        raise AssertionError(f"12a: per_question_topk output changed: digest {digest} != {PQT_DIGEST}")
+    log(f"[12a route] kernel 3 on its fixed input: PQT_DIGEST held (sha256 {digest[:16]}...)")
+    out["pooled"] = route_pooled(bundle_np)
+    return out
+
+
+def route_serve(label: str, emb: int, hidden: int, rounds: int, k: int, limit: str) -> dict:
+    """One shape the kernels refuse: ``serve`` through the CLI (exit 0, its
+    metrics, jsonl and manifest, one routing line naming ``limit``, no kernel
+    launch), then ``serve_split`` on the same split bit for bit the plain
+    serve (every bucket on the plain bf16 scorer) and held to the plain full
+    ranking by phase 4's rule."""
+    import logging
+    from unittest import mock
+
+    import numpy as np
+
+    from evi_rag_tpu_torch import cli
+    from evi_rag_tpu_torch.data.synthetic import make_synthetic_dataset
+    from evi_rag_tpu_torch.ops import score_kernels as sk
+    from evi_rag_tpu_torch.serving import project_tables, serve_recall_at_k, serve_split
+    from evi_rag_tpu_torch.train.checkpoint import bundle_from_numpy, save_checkpoint
+
+    s = 4 * (1 + 2 * rounds)
+    work = ROUTE_DIR / label.replace(" ", "").replace("=", "")
+    ds = make_synthetic_dataset(num_samples=ROUTE_QUESTIONS, seed=7, **{**REALISTIC, "emb_dim": emb})
+    np_bundle = make_bundle(emb, hidden, s, seed=17)
+    ckpt = work / "ckpt"
+    save_checkpoint(ckpt, {"params": np_bundle["features"]},
+                    meta={"parity_meta": {"dde_rounds": rounds, "dde_reverse_rounds": rounds}})
+    routed: list[str] = []
+
+    class Lines(logging.Handler):
+        def emit(self, record):
+            routed.append(record.getMessage())
+
+    handler = Lines(level=logging.WARNING)
+    serving_log = logging.getLogger("evi_rag_tpu_torch.serving")
+    serving_log.addHandler(handler)
+    load_split = lambda cfg, split: (ds.samples, ds.entity_emb, ds.relation_emb, ds.question_emb)  # noqa: E731
+    try:
+        reset_launches()
+        with mock.patch.object(cli, "_load_split", load_split):
+            rc = cli.main(["serve", "--configs-dir", str(ROOT / "configs"), f"retriever.ckpt={ckpt}",
+                           "serve.splits=[validation]", f"serve.k={k}", f"retriever.model.dde_rounds={rounds}",
+                           f"retriever.model.dde_reverse_rounds={rounds}", "extras.print_config=false",
+                           f"paths.log_dir={work / 'logs'}"])
+        cli_launches = sk.per_question_topk.launches
+    finally:
+        serving_log.removeHandler(handler)
+    files = sorted((work / "logs").glob("**/metrics.json"))
+    if rc != 0 or not files:
+        raise AssertionError(f"12a {label}: serve exit {rc}, metrics {files}")
+    run = files[-1].parent
+    metrics = json.loads(files[-1].read_text())
+    for name in ("validation_serve.jsonl", "validation.manifest.json"):
+        if not (run / name).exists():
+            raise AssertionError(f"12a {label}: serve wrote no {name}")
+    lines = [ln for ln in routed if "kernel needs" in ln]
+    if cli_launches or len(lines) != 1 or limit not in lines[0]:
+        raise AssertionError(f"12a {label}: kernel-3 launches {cli_launches}, routing lines {lines}")
+
+    bundle = {"features": bundle_from_numpy(np_bundle["features"], device="cuda")}
+    projected = project_tables(bundle, ds.entity_emb, ds.relation_emb, device="cuda")
+    kw = dict(entity_emb=ds.entity_emb, relation_emb=ds.relation_emb, question_emb=ds.question_emb,
+              num_rounds=rounds, num_reverse_rounds=rounds, projected=projected, device="cuda")
+    serve_split(bundle, ds.samples, k=k, **kw)  # warm
+    reset_launches()
+    results, st = serve_split(bundle, ds.samples, k=k, **kw)
+    if sk.per_question_topk.launches:
+        raise AssertionError(f"12a {label}: serve_split launched kernel 3")
+    plain, plain_st = serve_split(bundle, ds.samples, k=k, fused_threshold=1 << 30, **kw)
+    for a, b in zip(results, plain):
+        if not (np.array_equal(a.edge_ids, b.edge_ids) and np.array_equal(a.scores, b.scores)):
+            raise AssertionError(f"12a {label}: {a.sample_id} differs from the plain serve")
+    full, _ = serve_split(bundle, ds.samples, k=FULL_RANK, fused_threshold=1 << 30, **kw)  # every edge ranked
+    _, swapped, max_err = check_against_plain(ds.samples, results, full)
+    k_grid = [10, 100]
+    rec = serve_recall_at_k(ds.samples, results, k_grid)
+    cli_rec = {key: metrics[f"validation/{key}"] for key in rec}
+    if any(abs(rec[key] - cli_rec[key]) > 1e-9 for key in rec):
+        raise AssertionError(f"12a {label}: the CLI's recall {cli_rec} vs serve_split's {rec}")
+    if any(r.edge_ids.size != min(k, smp.edge_index.shape[1]) for r, smp in zip(results, ds.samples)):
+        raise AssertionError(f"12a {label}: a question got a short answer")
+    log(f"[12a route] {label} (D = {emb}, H = {hidden}, S = {s}, k = {k}): serve exit 0 with metrics, jsonl and "
+        f"manifest, 0 kernel-3 launches, routing line \"{lines[0]}\"; serve_split bit for bit the plain serve "
+        f"({ROUTE_QUESTIONS} questions); vs the plain full ranking max score error {max_err:.3e}, near-tie swaps "
+        f"{swapped}/{ROUTE_QUESTIONS}; recall {rec} (CLI {cli_rec}); q/s {st.queries_per_s} (plain serve "
+        f"{plain_st.queries_per_s})")
+    return dict(shape=dict(d=emb, h=hidden, s=s, k=k), routing_line=lines[0], cli_launches=cli_launches,
+                max_abs_err=max_err, swapped=swapped, recall=rec, qps=st.queries_per_s)
+
+
+def route_phase4(ctx) -> dict:
+    """Phase 4's serve again: 17 kernel-3 launches, bit for bit its ids and
+    scores."""
+    import numpy as np
+
+    from evi_rag_tpu_torch.ops import score_kernels as sk
+    from evi_rag_tpu_torch.serving import serve_split
+
+    bundle, ds, kw, results, _ = ctx
+    reset_launches()
+    again, st = serve_split(bundle, ds.samples, **kw)
+    launches = sk.per_question_topk.launches
+    if launches != st.num_groups + 1 or launches != QUESTIONS // G + 1:
+        raise AssertionError(f"12a: phase 4's serve made {launches} kernel-3 launches")
+    if not all(np.array_equal(a.edge_ids, b.edge_ids) and np.array_equal(a.scores, b.scores)
+               for a, b in zip(results, again)):
+        raise AssertionError("12a: phase 4's serve changed")
+    log(f"[12a route] phase 4's serve (D = {D}, S = {S}, k = {K}): {launches} kernel-3 launches, ids and scores "
+        f"bit for bit phase 4's; {st.queries_per_s} q/s")
+    return dict(launches=launches, qps=st.queries_per_s)
+
+
+def route_pooled(bundle_np) -> dict:
+    """Kernels 1 and 2 at ROUTE_B queries over ROUTE_M candidates: two
+    launches each (65,535 + 4,465 queries), the joined rows at the chunks'
+    edges and ends held to the plain versions."""
+    import torch
+
+    from evi_rag_tpu_torch.ops import score_kernels as sk
+    from evi_rag_tpu_torch.ops.query import build_triple_index
+    from evi_rag_tpu_torch.train.checkpoint import bundle_from_numpy
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    bundle = {"features": bundle_from_numpy(bundle_np["features"], device=dev)}
+    gen = torch.Generator(device=dev).manual_seed(19)
+    index = build_triple_index(
+        bundle, entity_emb=torch.randn(ENTITIES, D, device=dev, generator=gen),
+        relation_emb=torch.randn(RELATIONS, D, device=dev, generator=gen),
+        nontext_mask=torch.rand(ENTITIES, device=dev, generator=gen) < 0.01,
+        heads=torch.randint(0, ENTITIES, (ROUTE_M,), device=dev, generator=gen),
+        rels=torch.randint(0, RELATIONS, (ROUTE_M,), device=dev, generator=gen),
+        tails=torch.randint(0, ENTITIES, (ROUTE_M,), device=dev, generator=gen),
+        struct_raw=torch.randn(ROUTE_M, S, device=dev, generator=gen), device=dev).to(dtype=torch.bfloat16)
+    q = torch.randn(ROUTE_B, D, device=dev, generator=gen)
+    w = sk.prep_weights(bundle["features"])
+    plan = sk.query_chunks(ROUTE_B)
+    ms, out = {}, {}
+    reset_launches()
+    for name, fn in (("per_query", sk.query_topk_per_query), ("fused", sk.query_topk_fused)):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out[name] = fn(bundle, q, index, k=K, weights=w)
+        end.record()
+        torch.cuda.synchronize()
+        ms[name] = start.elapsed_time(end)
+    launches = {"score_bidirectional": sk.score_bidirectional.launches,
+                "query_topk_fused": sk.query_topk_fused.launches}
+    if launches != {"score_bidirectional": len(plan), "query_topk_fused": len(plan)} or len(plan) != 2:
+        raise AssertionError(f"12a: pooled launches {launches} for the chunk plan {plan}")
+    rows = torch.tensor(ROUTE_ROWS, device=dev)
+    cand = (index.head_repr, index.rel_repr, index.tail_repr, index.struct_raw)
+    plain1 = sk.score_bidirectional_reference(bundle, q[rows], *cand, weights=w)
+    plain2 = sk.fused_scores_reference(bundle, q[rows], *cand, weights=w)
+    err1, diff1 = hold_to_plain(out["per_query"][0][rows], out["per_query"][1][rows], plain1, K)
+    err2, diff2 = hold_to_plain(out["fused"][0][rows], out["fused"][1][rows], plain2, K)
+    for name, (v, i) in out.items():
+        if v.shape != (ROUTE_B, K) or i.shape != (ROUTE_B, K) or not torch.isfinite(v).all():
+            raise AssertionError(f"12a {name}: output {tuple(v.shape)} / {tuple(i.shape)} or not finite")
+    log(f"[12a route] B = {ROUTE_B} queries over M = {ROUTE_M} (D = {D}, k = {K}), query chunks {plan}: launches "
+        f"{launches}; rows {list(ROUTE_ROWS)} vs plain: kernel 1 max_abs_err {err1:.3e} differing ids {diff1}, "
+        f"kernel 2 max_abs_err {err2:.3e} differing ids {diff2} (tol {ATOL}, near-tie {TIE_TOL}); ms per call "
+        f"query_topk_per_query {ms['per_query']:.3f}, query_topk_fused {ms['fused']:.3f}")
+    return dict(plan=plan, launches=launches, max_abs_err={"score_bidirectional": err1, "query_topk_fused": err2},
+                differing_ids={"per_query": diff1, "fused": diff2}, ms=ms)
+
+
+def phase_quality(smi: str) -> dict:
+    """12b: the quality gate on the card (its floors must hold), the quality
+    baseline at seed 0 against the seed-spread bar, and ``eval_retriever``
+    of the baseline's retriever on the card against the CPU at f32."""
+    from evi_rag_tpu_torch.scripts import benchmark_quality, quality_gate
+
+    QUALITY_DIR.mkdir(parents=True, exist_ok=True)
+    out = {"nvidia_smi": smi}
+    t0 = time.perf_counter()
+    gate, _ = quality_gate.quality_gate("cuda")
+    gate_s = time.perf_counter() - t0
+    failed = quality_gate.failed_floors(gate)
+    if failed or gate["bridge/pos_graph_frac"] != 1.0:
+        raise AssertionError(f"12b gate: below the floors {failed}: {gate}")
+    log(f"[12b gate] the quality gate trained on the card from the port's init in {gate_s:.1f} s: " + ", ".join(
+        f"{m} {gate[m]:.4f} (floor {f})" for m, f in quality_gate.FLOORS.items())
+        + f", bridge/pos_graph_frac {gate['bridge/pos_graph_frac']}; {smi}")
+    out["gate"] = dict(metrics={m: gate[m] for m in (*quality_gate.FLOORS, "bridge/pos_graph_frac")}, s=gate_s)
+
+    t0 = time.perf_counter()
+    result = benchmark_quality.run(seed=0, device="cuda")
+    grid = benchmark_quality.metric_grid(result)
+    base_s = time.perf_counter() - t0
+    outside = [m for m, (lo, hi) in QUALITY_BAR.items() if not lo <= grid[m] <= hi]
+    log(f"[12b baseline] benchmark_quality at seed 0 on the card (128 train / {result['test_samples']} test, emb 64, "
+        f"10 + 5 epochs) in {base_s:.1f} s: " + ", ".join(
+            f"{m} {grid[m]:.4f} (bar [{lo:.4f}, {hi:.4f}])" for m, (lo, hi) in QUALITY_BAR.items()))
+    log(f"[12b baseline] grid {json.dumps(grid)}")
+    if outside:
+        raise AssertionError(f"12b baseline: {outside} outside the seed-spread bar")
+    out["baseline"] = dict(grid=grid, s=base_s)
+    try:
+        out["eval"] = eval_card_vs_cpu(result)
+    finally:
+        shutil.rmtree(QUALITY_WORK, ignore_errors=True)
+    return out
+
+
+def eval_card_vs_cpu(result) -> dict:
+    """``eval_retriever`` of the baseline's retriever over its test split,
+    on the card and on the CPU (f32; TF32 is off, phase 1): every metric
+    within EVAL_ATOL, and each question's ranked edges equal by the
+    near-tie rule (a pair in one order on the card and the other on the CPU
+    only where the CPU scores are within EVAL_ATOL)."""
+    from unittest import mock
+
+    from evi_rag_tpu_torch import cli
+    from evi_rag_tpu_torch.data.synthetic import make_synthetic_dataset
+    from evi_rag_tpu_torch.scripts.benchmark_quality import KS
+    from evi_rag_tpu_torch.train.checkpoint import save_checkpoint
+
+    ckpt = QUALITY_WORK / "retriever"
+    save_checkpoint(ckpt, result["retriever_params"], meta={"parity_meta": result["parity_meta"]})
+    test = make_synthetic_dataset(num_samples=result["test_samples"], seed=100, emb_dim=64, max_nodes=32,
+                                  distractor_relation_overlap=0.15)
+    load_split = lambda cfg, split: (test.samples, test.entity_emb, test.relation_emb, test.question_emb)  # noqa: E731
+    metrics, ranked, wall = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        with mock.patch.object(cli, "_load_split", load_split):
+            rc = cli.main(["eval_retriever", "--configs-dir", str(ROOT / "configs"), f"device={dev}",
+                           f"retriever.ckpt={ckpt}", "retriever.model.emb_dim=64", "retriever.model.hidden_dim=64",
+                           "retriever.model.hide_seek.enabled=false", "eval.splits=[test]",
+                           f"retriever.train.k_values=[{', '.join(map(str, KS))}]",
+                           f"eval.artifacts_dir={QUALITY_WORK / dev}", "extras.print_config=false",
+                           f"paths.log_dir={QUALITY_DIR / 'logs' / f'eval_{dev}'}"])
+        wall[dev] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"12b eval_retriever on {dev}: exit {rc}")
+        metrics[dev] = latest_metrics(QUALITY_DIR / "logs" / f"eval_{dev}")
+        with (QUALITY_WORK / dev / "eval_retriever" / "test.jsonl").open() as f:
+            ranked[dev] = [json.loads(ln) for ln in f]
+    keys = sorted(k for k in metrics["cpu"] if "/phase/" not in k and isinstance(metrics["cpu"][k], (int, float)))
+    if sorted(k for k in metrics["cuda"] if k in set(keys)) != keys:
+        raise AssertionError("12b eval: the card and the CPU report other metrics")
+    max_diff = max(abs(metrics["cuda"][k] - metrics["cpu"][k]) for k in keys)
+    if max_diff > EVAL_ATOL:
+        worst = max(keys, key=lambda k: abs(metrics["cuda"][k] - metrics["cpu"][k]))
+        raise AssertionError(f"12b eval: {worst} card {metrics['cuda'][worst]} vs CPU {metrics['cpu'][worst]}")
+    top = str(max(KS))
+    swaps = max_score_diff = 0
+    for rc_, rp in zip(ranked["cuda"], ranked["cpu"]):
+        card = rc_["triplets_by_k"][top]
+        cpu = {e["edge_idx"]: e["score"] for e in rp["triplets_by_k"][top]}
+        if rc_["sample_id"] != rp["sample_id"] or {e["edge_idx"] for e in card} != set(cpu):
+            raise AssertionError(f"12b eval {rc_['sample_id']}: other edges ranked on the card")
+        for e in card:
+            max_score_diff = max(max_score_diff, abs(e["score"] - cpu[e["edge_idx"]]))
+        for a, b in zip(card, card[1:]):
+            if cpu[a["edge_idx"]] < cpu[b["edge_idx"]]:
+                if cpu[b["edge_idx"]] - cpu[a["edge_idx"]] > EVAL_ATOL:
+                    raise AssertionError(f"12b eval {rc_['sample_id']}: edges {a['edge_idx']}, {b['edge_idx']} "
+                                         "ranked apart from the CPU beyond the near-tie rule")
+                swaps += 1
+    if max_score_diff > EVAL_ATOL:
+        raise AssertionError(f"12b eval: edge scores differ by {max_score_diff:.3e} > {EVAL_ATOL}")
+    log(f"[12b eval] eval_retriever of the baseline's retriever over its {len(ranked['cpu'])}-question test split, "
+        f"card vs CPU (f32): {len(keys)} metrics within {max_diff:.3e} (tol {EVAL_ATOL}); ranked edges equal by the "
+        f"near-tie rule ({swaps} adjacent near-tie swaps; edge scores within {max_score_diff:.3e}); task wall s card "
+        f"{wall['cuda']:.1f}, CPU {wall['cpu']:.1f}")
+    return dict(metrics=len(keys), max_metric_diff=max_diff, swaps=swaps, max_score_diff=max_score_diff, wall_s=wall)
+
+
+def phase_quality_chain(smi: str, *, counts: dict | None = None, dim: int = D, device: str = "cuda",
+                        extra: tuple = ()) -> dict:
+    """``--quality``: the WebQSP-scale chain of ``scripts/run_webqsp_synth_hw.sh``
+    through the port's CLI on the card, from ``testing.synthetic_rows``'
+    WebQSP preset (all three splits; ``counts`` cuts them for a dry run)
+    built with the hash encoder at ``dim`` through ``read_raw_rows`` +
+    ``build_from_samples`` (no parquet), then ``experiment=webqsp_synth_hw``
+    with round 4's 8 retriever and 2 GFlowNet epochs: every stage exit 0
+    with its manifest, serve through kernel 3; stage seconds and the round-4
+    metrics beside the TPU run's quality values."""
+    QUALITY_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        return quality_chain(smi, counts, dim, device, list(extra))
+    finally:
+        shutil.rmtree(QUALITY_WORK, ignore_errors=True)
+
+
+def quality_chain(smi: str, counts, dim: int, device: str, extra: list) -> dict:
+    import contextlib
+    import importlib.util
+    from unittest import mock
+
+    import numpy as np
+
+    from evi_rag_tpu_torch import cli
+    from evi_rag_tpu_torch.data.pipeline import build_from_samples, read_raw_rows, write_tables
+    from evi_rag_tpu_torch.ops import score_kernels as sk
+    from evi_rag_tpu_torch.testing import synthetic_rows
+    from evi_rag_tpu_torch.utils.config import load_config
+    from evi_rag_tpu_torch.utils.device import resolve_device
+
+    configs = str(ROOT / "configs")
+    root, art = QUALITY_WORK / "normalized", QUALITY_WORK / "artifacts"
+    stage_s: dict[str, float] = {}
+    t0 = time.perf_counter()
+    rows = list(synthetic_rows("webqsp", seed=0, counts=counts))
+    stage_s["rows"] = time.perf_counter() - t0
+    sizes = {split: len(r) for split, r in rows}
+    b = load_config(configs, "build", ["build.dataset=webqsp_synth", "build.raw_root=unused",
+                                       f"build.out_dir={root}", f"build.encoder.dim={dim}"])["build"]
+    t0 = time.perf_counter()
+    res, tables = build_from_samples(cli._pipeline_config(b), cli._text_encoder(b["encoder"], resolve_device(device)),
+                                     read_raw_rows(rows, b["dataset"], column_map=b.get("column_map"),
+                                                   entity_normalization=str(b.get("entity_normalization", "none"))))
+    stage_s["build"] = time.perf_counter() - t0
+    del rows
+    log(f"[quality build] WebQSP preset (seed 0) {sizes} questions, hash encoder D = {dim}: {res.num_entities} "
+        f"entities, {res.num_relations} relations, kept {res.counts['kept']}, sub {res.counts['sub']}; built in "
+        f"{stage_s['build']:.1f} s (rows made in {stage_s['rows']:.1f} s)")
+    patches = []
+    if importlib.util.find_spec("pyarrow") is not None:
+        write_tables(root, tables)
+    else:  # the parquet tables' rows, as the CLI would read them
+        ents = {int(e["entity_id"]): str(e["label"]) for e in tables["entity_vocab.parquet"]}
+        rels = {int(r["relation_id"]): str(r["label"]) for r in tables["relation_vocab.parquet"]}
+        qs = {r["graph_id"]: (r["question"], list(r.get("a_entity") or []) or None)
+              for r in tables["questions.parquet"]}
+        normalized = lambda cfg: (cfg.get("dataset", {}).get("source") == "normalized")  # noqa: E731
+        patches = [mock.patch.object(cli, "_vocab_maps", lambda cfg: (ents, rels) if normalized(cfg) else ({}, {})),
+                   mock.patch.object(cli, "_question_lookup", lambda cfg: qs if normalized(cfg) else {})]
+    del tables
+
+    common = ["--configs-dir", configs, f"device={device}", "experiment=webqsp_synth_hw", "extras.print_config=false",
+              f"dataset.normalized_dir={root}"]
+    ckpt = QUALITY_WORK / "ckpt"
+    sub = "dataset=webqsp_synth-sub"
+    stages = [
+        ("train_retriever", ["train_retriever", sub, f"retriever.train.ckpt_dir={ckpt / 'retriever'}",
+                             "retriever.train.max_epochs=8"]),
+        *((f"eval_retriever:{v}", ["eval_retriever", f"dataset={v}", f"retriever.ckpt={ckpt / 'retriever' / 'best'}",
+                                   "eval.splits=[train, validation, test]", f"eval.artifacts_dir={art / v}"])
+          for v in ("webqsp_synth", "webqsp_synth-sub")),
+        ("train_gflownet", ["train_gflownet", sub, f"retriever.ckpt={ckpt / 'retriever' / 'best'}",
+                            f"gflownet.g_agent_dir={art / 'webqsp_synth-sub' / 'g_agent'}",
+                            f"gflownet.ckpt_dir={ckpt / 'gflownet'}", "gflownet.max_epochs=2"]),
+        ("eval_gflownet", ["eval_gflownet", sub, f"gflownet.ckpt={ckpt / 'gflownet' / 'best'}",
+                           f"gflownet.g_agent_dir={art / 'webqsp_synth-sub' / 'g_agent'}",
+                           "eval.splits=[validation, test]", f"eval.artifacts_dir={art / 'webqsp_synth-sub'}"]),
+        ("reasoner", ["reasoner", sub, f"gflownet.g_agent_dir={art / 'webqsp_synth-sub' / 'g_agent'}",
+                      f"eval.artifacts_dir={art / 'webqsp_synth-sub'}"]),
+        ("serve", ["serve", "dataset=webqsp_synth", f"retriever.ckpt={ckpt / 'retriever' / 'best'}",
+                   "serve.splits=[validation, test]", f"serve.k={K}", "serve.k_values=[1, 10, 100]"]),
+    ]
+    metrics: dict[str, dict] = {}
+    launches = 0
+    with contextlib.ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        for name, argv in stages:
+            logs = QUALITY_DIR / "logs" / name.replace(":", "_")
+            reset_launches()
+            t0 = time.perf_counter()
+            rc = cli.main([argv[0], *common, *argv[1:], *extra, f"paths.log_dir={logs}"])
+            stage_s[name] = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"quality {name}: exit {rc}")
+            metrics[name] = latest_metrics(logs)
+            if name == "serve":
+                launches = sk.per_question_topk.launches
+            log(f"[quality {name}] exit 0 in {stage_s[name]:.1f} s")
+    manifests = {
+        "train_retriever": ckpt / "retriever" / "best" / "meta.json",
+        "eval_retriever:webqsp_synth": art / "webqsp_synth" / "g_agent" / "test" / "manifest.json",
+        "eval_retriever:webqsp_synth-sub": art / "webqsp_synth-sub" / "g_agent" / "train" / "manifest.json",
+        "train_gflownet": ckpt / "gflownet" / "best" / "meta.json",
+        "eval_gflownet": art / "webqsp_synth-sub" / "eval_gflownet" / "test.manifest.json",
+    }
+    missing = [n for n, p in manifests.items() if not p.exists()]
+    serve_runs = sorted((QUALITY_DIR / "logs" / "serve").glob("**/test.manifest.json"))
+    if missing or not serve_runs or (device != "cpu" and launches <= 0):
+        raise AssertionError(f"quality: manifests missing {missing}, serve manifests {serve_runs}, kernel-3 "
+                             f"launches {launches}")
+    table = chain_table(metrics)
+    for row, (got, tpu) in table.items():
+        log(f"[quality table] {row}: card {got} | TPU v5e round 4 {tpu}")
+    sv = metrics["serve"]
+    log(f"[quality] stage wall s {json.dumps({k: round(v, 1) for k, v in stage_s.items()})}; serve kernel-3 "
+        f"launches {launches}, q/s validation {sv.get('validation/queries_per_s')} test "
+        f"{sv.get('test/queries_per_s')}; {smi}")
+    finite = [v for m in metrics.values() for v in m.values() if isinstance(v, float)]
+    if not np.isfinite(finite).all():
+        raise AssertionError("quality: a stage reported a non-finite metric")
+    return dict(stage_s=stage_s, serve_launches=launches, table=table, metrics=metrics, sizes=sizes)
+
+
+def chain_table(metrics: dict) -> dict:
+    """Round 4's rows (``ROUND4``): the card's values beside the TPU run's."""
+    def r(v):
+        return None if v is None else round(float(v), 3)
+
+    tr = metrics["train_retriever"]
+    ev = metrics["eval_retriever:webqsp_synth"]
+    gf, rs, sv = metrics["eval_gflownet"], metrics["reasoner"], metrics["serve"]
+    splits = ("train", "validation", "test")
+    ev_row = lambda key: tuple(r(ev.get(f"{s}/{key}")) for s in splits)  # noqa: E731
+    got = {
+        "train_retriever answer/reachability@100 (validation)": r(tr.get("answer/reachability@100")),
+        "eval edge/recall@10 train / validation / test": ev_row("edge/recall@10"),
+        "eval edge/recall@100": ev_row("edge/recall@100"),
+        "eval answer/reachability@100": ev_row("answer/reachability@100"),
+        "eval answer_recall@100": ev_row("answer_recall@100"),
+        "eval edge/score_margin": ev_row("edge/score_margin"),
+        "eval edge/margin_positive_rate": ev_row("edge/margin_positive_rate"),
+        "eval ranking/mrr": ev_row("ranking/mrr"),
+        "eval ranking/ndcg@10": ev_row("ranking/ndcg@10"),
+        "eval_gflownet answer_hit@25 validation / test": (r(gf.get("validation/answer_hit@25")),
+                                                          r(gf.get("test/answer_hit@25"))),
+        "eval_gflownet test answer_hit@1 / @10 / @25": tuple(r(gf.get(f"test/answer_hit@{k}")) for k in (1, 10, 25)),
+        "reasoner oracle hit@100 validation / test": (r(rs.get("validation/answer_hit@100")),
+                                                      r(rs.get("test/answer_hit@100"))),
+        "serve recall@100 (validation + test)": (r(sv.get("validation/serve/recall@100")),
+                                                 r(sv.get("test/serve/recall@100"))),
+    }
+    return {row: (got[row], tpu) for row, tpu in ROUND4.items()}
+
+
 def main() -> int:
     if not (ROOT / "evi_rag_tpu_torch" / "serving.py").is_file():
         print("chip_smoke: run from a checkout of the repository (evi_rag_tpu_torch/ missing)",
@@ -2968,6 +3482,19 @@ def main() -> int:
     if sys.argv[1:2] == ["--crossover"]:
         phase_crossover(phase_device())
         return 0
+    if sys.argv[1:2] == ["--quality"]:
+        t_all = time.perf_counter()
+        smi = phase_device()
+        phase_build()
+        chain = phase_quality_chain(smi)
+        chain["wall_s"] = time.perf_counter() - t_all
+        (OUT_DIR / "chip_smoke_quality.json").write_text(json.dumps(chain, indent=2, default=str))
+        log(f"[done] wall {chain['wall_s']:.1f} s; details in chiprun_out/chip_smoke_quality.json")
+        log(json.dumps({"quality": {k: chain[k] for k in ("stage_s", "serve_launches", "table", "sizes")}}))
+        log(smi)
+        log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     t_all = time.perf_counter()
     smi = phase_device()
     build_s = phase_build()
@@ -2986,7 +3513,11 @@ def main() -> int:
     native_bfs = phase_native()
     build = phase_build_data(smi, train["retriever_ckpt"])
     sweep = phase_sweep(smi, load_split)
-    multi = phase_multidevice(smi, bundle_np, serve.pop("_ctx"))
+    serve_ctx = serve.pop("_ctx")
+    multi = phase_multidevice(smi, bundle_np, serve_ctx)
+    route = phase_route(smi, bundle_np, serve_ctx)
+    del serve_ctx
+    quality = phase_quality(smi)
 
     rep = next(r for r in rows if r["M"] == REPORT_M)
     kernels = [{
@@ -3002,6 +3533,7 @@ def main() -> int:
         "launches_serving_sweep_best": sweep["serve"]["launches"],
         "launches_dp_serve": multi["11d"]["launches"],
         "launches_debug_serve": debug["c"]["pqt_launches"],
+        "launches_route_phase4_serve": route["phase4"]["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": rep["ms"],
         "plain_ms": rep["plain_ms"],
@@ -3022,6 +3554,7 @@ def main() -> int:
             "replaces": f"evi_rag_tpu/ops/pallas_score.py:{replaces[name]}",
             "launches": pooled["launches"][name],
             **({"launches_sharded_pooled": multi["11b"]["launches"]} if name == "query_topk_fused" else {}),
+            f"launches_b{ROUTE_B}": route["pooled"]["launches"][name],
             "max_abs_err": pooled["max_abs_err"][name],
             "ms": pooled["ms"][name],
             "plain_ms": pooled["plain_ms"][name],
@@ -3036,7 +3569,7 @@ def main() -> int:
         })
     details = dict(nvidia_smi=smi, build_s=build_s, kernel=rows, serve=serve, cli=cli_metrics,
                    pooled=pooled, train=train, gflownet=gflownet, debug=debug, native_bfs=native_bfs, build=build, sweep=sweep,
-                   multi=multi, kernels=kernels,
+                   multi=multi, route=route, quality=quality, kernels=kernels,
                    wall_s=time.perf_counter() - t_all)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(details, indent=2, default=str))
     log(f"[done] wall {details['wall_s']:.1f} s; details in chiprun_out/chip_smoke.json")

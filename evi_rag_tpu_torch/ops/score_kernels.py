@@ -26,6 +26,15 @@ in the sources for each design and bound.
   ``score_bidirectional``).  For CPU tensors it returns the plain version
   and counts nothing; any other device raises.  There is no fallback from
   a kernel to its plain version.
+* The kernels take D % 64 == 0, D <= 1024, H % 8 == 0, H <= 1024, an even
+  S <= 32 and k <= 1024 (the Pallas kernels take any).  ``kernel_supports``
+  states these limits in one place: a router (``serving.serve_split``)
+  asks it before it sends a shape to a kernel, and a wrapper called on a
+  shape outside them raises.
+* A pooled call over more than ``MAX_QUERIES`` queries (the launch grid's
+  limit) is launched once per ``query_chunks`` range, each launch counted,
+  and the results are joined: the output equals one launch over all
+  queries, as the Pallas route takes any B.
 * Under ``extras.debug_nans`` a wrapper raises ``FloatingPointError``
   naming its kernel when a floating output holds a NaN
   (``utils.extras.check_kernel_outputs``; ``-inf`` passes).  The plain
@@ -54,6 +63,9 @@ SCORE_SOURCE = "score_bidirectional.cu"
 POOLED_SOURCE = "pooled_query.cu"
 KERNEL_SOURCES = (KERNEL_SOURCE, SCORE_SOURCE, POOLED_SOURCE)
 MAX_K = 1024              # the select launch's limit (kMaxK in twin_score.cuh)
+MAX_D = MAX_H = 1024      # kMaxD, kMaxH (twin_dims_ok in twin_score.cuh)
+MAX_S = 32                # kMaxS
+MAX_QUERIES = 65535       # queries of one pooled launch (the grid's y limit); larger calls are chunked
 SLICE_N = 128             # H columns per CTA of the pooled kernels (kSliceN in twin_wgmma.cuh)
 TILE_K = 64               # k per W1 tile (kChunkK)
 EDGE_TILE = 128           # edges per tile of the wgmma kernels (kEdgesCTA)
@@ -420,8 +432,45 @@ def _device_of(name: str, x: torch.Tensor) -> torch.device:
     return x.device
 
 
+# The kernels' shape limits: per dimension, (what it needs, test).
+_LIMITS = {
+    "D": (("D % 64 == 0", lambda v: v % 64 == 0), (f"D <= {MAX_D}", lambda v: 0 < v <= MAX_D)),
+    "H": (("H % 8 == 0", lambda v: v % 8 == 0), (f"H <= {MAX_H}", lambda v: 0 < v <= MAX_H)),
+    "S": (("S % 2 == 0", lambda v: v % 2 == 0), (f"S <= {MAX_S}", lambda v: 0 < v <= MAX_S)),
+    "k": ((f"1 <= k <= {MAX_K}", lambda v: 1 <= v <= MAX_K),),
+}
+
+
+def _unmet(dim: str, value: int) -> list[str]:
+    return [need for need, ok in _LIMITS[dim] if not ok(value)]
+
+
+def kernel_limit(d: int, h: int, s: int, k: int) -> str | None:
+    """The first of the kernels' shape limits that embedding width ``d``,
+    hidden width ``h``, struct width ``s`` and top ``k`` break, as
+    ``"D=96: kernel needs D % 64 == 0"``; None when the kernels take the
+    shape."""
+    for dim, value in (("D", d), ("H", h), ("S", s), ("k", k)):
+        unmet = _unmet(dim, value)
+        if unmet:
+            return f"{dim}={value}: kernel needs {' and '.join(unmet)}"
+    return None
+
+
+def kernel_supports(d: int, h: int, s: int, k: int) -> bool:
+    """Whether the kernels take this (D, H, S, k) (k <= M aside): the limits
+    that ``_kernel_weights`` and ``_check_k`` raise on."""
+    return kernel_limit(d, h, s, k) is None
+
+
+def query_chunks(b: int) -> list[tuple[int, int]]:
+    """(start, stop) query ranges of at most ``MAX_QUERIES``: one pooled
+    launch each (one range for B <= ``MAX_QUERIES``, B = 0 included)."""
+    return [(b0, min(b0 + MAX_QUERIES, b)) for b0 in range(0, max(b, 1), MAX_QUERIES)]
+
+
 def _check_k(k: int, m: int) -> None:
-    if not 1 <= k <= min(m, MAX_K):
+    if _unmet("k", k) or k > m:
         raise ValueError(f"the kernels need 1 <= k <= min(M={m}, {MAX_K}), got k={k}")
 
 
@@ -435,13 +484,13 @@ def _kernel_weights(
     """The prepared weights, after checking every weight the kernels read.
     The caller holds them until its launch is enqueued (the allocator may
     hand freed memory to the next allocation)."""
-    if d % 64 or d > 1024:
+    if _unmet("D", d):
         raise ValueError(f"kernel needs D % 64 == 0 and D <= 1024, got D={d}")
-    if s % 2 or s > 32:
+    if _unmet("S", s):
         raise ValueError(f"kernel needs an even struct width <= 32, got S={s}")
     w = weights if weights is not None else prep_weights(bundle["features"])
     h_dim = w["w1_dist"].shape[-1]
-    if h_dim % 8 or h_dim > 1024:
+    if _unmet("H", h_dim):
         raise ValueError(f"kernel needs H % 8 == 0 and H <= 1024, got H={h_dim}")
     shapes = [(1, h_dim), (h_dim,), (h_dim,), (h_dim,), (h_dim, 1), (1,), (s, d), (d,), (d,), (d,),
               (d, 1), (1,)]
@@ -524,8 +573,8 @@ def _check_pooled(q_emb, head_repr, rel_repr, tail_repr, struct_raw, dev) -> tup
         _check(name, x, torch.bfloat16, (m, d), dev)
     _check("struct_raw", struct_raw, torch.bfloat16, (m, s), dev)
     _check("q_emb", q_emb, torch.float32, (b, d), dev)
-    if not 1 <= b <= 65535:
-        raise ValueError(f"kernel needs 1 <= B <= 65535 queries, got {b}")
+    if not 1 <= b <= MAX_QUERIES:
+        raise ValueError(f"kernel needs 1 <= B <= {MAX_QUERIES} queries, got {b}")
     return b, m, d, s
 
 
@@ -611,21 +660,23 @@ def score_bidirectional(
     set (``pallas_score_bidirectional`` with the query axis written out).
 
     CUDA tensors launch ``csrc/score_bidirectional.cu`` once per chunk of
-    candidates; CPU tensors take the plain version
+    candidates (per ``query_chunks`` range); CPU tensors take the plain version
     (``score_bidirectional_reference``).  Device scratch per call: sc and
     nav, ``scratch_bytes_per_edge(D, H, False)`` bytes per candidate (4 KB +
     8 B at D = 1024: 512 MiB at M = 131,072), M chunked so that it stays
     within ``SCRATCH_BYTES`` (1 GiB), besides the [B, M] f32 scores.
     """
     dev = _device_of("score_bidirectional", head_repr)
-    if dev.type == "cpu":
-        scores = score_bidirectional_reference(
-            bundle, q_emb, head_repr, rel_repr, tail_repr, struct_raw, weights=weights
-        )
-    else:
-        scores = _pooled_scores(SCORE_SOURCE, "sb_forward", "score_bidirectional", bundle, q_emb,
-                                (head_repr, rel_repr, tail_repr, struct_raw), weights, fused=False)
-        score_bidirectional.launches += 1
+    rows = (head_repr, rel_repr, tail_repr, struct_raw)
+    parts = []
+    for b0, b1 in query_chunks(q_emb.shape[0]):
+        if dev.type == "cpu":
+            parts.append(score_bidirectional_reference(bundle, q_emb[b0:b1], *rows, weights=weights))
+        else:
+            parts.append(_pooled_scores(SCORE_SOURCE, "sb_forward", "score_bidirectional", bundle,
+                                        q_emb[b0:b1], rows, weights, fused=False))
+            score_bidirectional.launches += 1
+    scores = parts[0] if len(parts) == 1 else torch.cat(parts)
     check_kernel_outputs("score_bidirectional", scores)
     return scores
 
@@ -665,7 +716,8 @@ def query_topk_fused(
     [B, k] int32) ordered (score desc, index asc).
 
     CUDA tensors launch ``csrc/pooled_query.cu`` once per chunk of
-    candidates (scores), then one exact select; CPU tensors take the plain
+    candidates (scores), then one exact select, per ``query_chunks`` range;
+    CPU tensors take the plain
     version (``query_topk_fused_reference``).  Device scratch per call: sc,
     nav and the per-edge terms c, ``scratch_bytes_per_edge(D, H, True)``
     bytes per candidate (12 KB + 8 B at D = H = 1024), M chunked so that it
@@ -675,16 +727,23 @@ def query_topk_fused(
     """
     dev = _device_of("query_topk_fused", index.head_repr)
     _check_k(k, index.num_candidates)
-    if dev.type == "cpu":
-        vals, ids = query_topk_fused_reference(bundle, q_emb, index, k=k, weights=weights)
-        check_kernel_outputs("query_topk_fused", vals)
-        return vals, ids
-    rows = (index.head_repr, index.rel_repr, index.tail_repr, index.struct_raw)
-    scores = _pooled_scores(POOLED_SOURCE, "pq_forward", "query_topk_fused", bundle, q_emb, rows, weights,
-                            fused=True)
-    query_topk_fused.launches += 1
-    check_kernel_outputs("query_topk_fused", scores)
-    return _select(scores, k, "query_topk_fused")
+    vals, ids = [], []
+    for b0, b1 in query_chunks(q_emb.shape[0]):
+        if dev.type == "cpu":
+            v, i = query_topk_fused_reference(bundle, q_emb[b0:b1], index, k=k, weights=weights)
+            check_kernel_outputs("query_topk_fused", v)
+        else:
+            rows = (index.head_repr, index.rel_repr, index.tail_repr, index.struct_raw)
+            scores = _pooled_scores(POOLED_SOURCE, "pq_forward", "query_topk_fused", bundle, q_emb[b0:b1], rows,
+                                    weights, fused=True)
+            query_topk_fused.launches += 1
+            check_kernel_outputs("query_topk_fused", scores)
+            v, i = _select(scores, k, "query_topk_fused")
+        vals.append(v)
+        ids.append(i)
+    if len(vals) == 1:
+        return vals[0], ids[0]
+    return torch.cat(vals), torch.cat(ids)
 
 
 per_question_topk.launches = 0

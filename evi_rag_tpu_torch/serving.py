@@ -14,7 +14,10 @@ chunks by the ``_chunk_plan`` ladder.  bf16 buckets with ``m_pad >=
 fused_threshold`` go through the hand-written kernel
 (``ops.score_kernels.per_question_topk``); smaller buckets and every f32
 request go through the plain PyTorch scorer (``ops.query``).  An f32 request
-never reaches the bf16 kernel.
+never reaches the bf16 kernel.  Nor does a model or k outside the kernel's
+shape limits (``ops.score_kernels.kernel_supports``: emb_dim 96, hidden
+2048, S = 36, k = 1500, ...): its buckets take the plain bf16 scorer, as
+buckets under the threshold do, and the call logs one line naming the limit.
 
 With a ``mesh`` (``parallel.mesh``), each group's question axis splits
 across the mesh's devices (the group size rounds up to a multiple of the
@@ -47,9 +50,12 @@ from evi_rag_tpu_torch.data.sample import RetrievalSample
 from evi_rag_tpu_torch.models.dde import build_node_struct_features
 from evi_rag_tpu_torch.ops.nnfn import projector as _projector, tree_to
 from evi_rag_tpu_torch.ops.query import query_topk_per_question
-from evi_rag_tpu_torch.ops.score_kernels import per_question_topk, prep_weights
+from evi_rag_tpu_torch.ops.score_kernels import kernel_limit, per_question_topk, prep_weights
 from evi_rag_tpu_torch.parallel.mesh import Mesh, per_device
 from evi_rag_tpu_torch.utils.device import resolve_device
+from evi_rag_tpu_torch.utils.logging import get_logger
+
+log = get_logger(__name__)
 
 
 def _sync(device: torch.device) -> None:
@@ -249,6 +255,11 @@ def serve_split(
     if projected is None:
         projected = project_tables(bundle, entity_emb, relation_emb, device=dev)
     kernel_path = dtype == torch.bfloat16
+    # The kernel's shape limits hold per model and k, so one check serves
+    # every bucket of the call.
+    fault = kernel_limit(feats["q_gate"]["kernel"].shape[0], feats["state_net_0"]["kernel"].shape[-1],
+                         feats["struct_proj"]["kernel"].shape[0], k)
+    routed_away = False
 
     def replica(d: torch.device) -> dict[str, Any]:
         """The tables, question embeddings and weights on device ``d``."""
@@ -354,8 +365,17 @@ def serve_split(
 
     def _use_fused(m_pad: int) -> bool:
         # The kernel computes in bf16; an explicit float32 request keeps the
-        # plain PyTorch scorer.
-        return m_pad >= fused_threshold and dtype == torch.bfloat16
+        # plain PyTorch scorer, and so does a shape the kernel does not take.
+        nonlocal routed_away
+        if m_pad < fused_threshold or dtype != torch.bfloat16:
+            return False
+        if fault is None:
+            return True
+        if not routed_away:
+            routed_away = True
+            log.warning("serve: bf16 buckets from m_pad %d take the plain bf16 scorer, not the kernel (%s)",
+                        m_pad, fault)
+        return False
 
     def _upload(x: np.ndarray, d: torch.device) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(x))

@@ -1,6 +1,7 @@
 """The hand-written kernels on the card against their plain versions (also
 per shard and per mesh entry: the sharded index build and pooled query, the
-data-parallel serve), the training steps and the GFlowNet's sample-then-score and "dots" remat on the
+data-parallel serve; the pooled query axis cut into launches), serve at the
+shapes the kernels refuse, the training steps and the GFlowNet's sample-then-score and "dots" remat on the
 card, and the build's gte encoder and native BFS library on the card's
 machine; one test (the port's task list) needs no card.
 
@@ -255,6 +256,62 @@ def test_pooled_kernels_reject_what_they_cannot_take(cuda):
     with pytest.raises(TypeError):
         sk.score_bidirectional(bundle, q, index.head_repr.float(), index.rel_repr, index.tail_repr,
                                index.struct_raw)
+
+
+def test_pooled_kernels_chunk_the_query_axis(cuda):
+    """70,000 queries, past one launch's 65,535: two launches of each pooled
+    kernel, and the joined rows at both sides of the cut and at the ends
+    held to the plain versions."""
+    bundle = _bundle(256, 256, 20, seed=70)
+    q, index = _pooled_case(cuda, 70_000, 1024, 256, seed=70)
+    before = (sk.score_bidirectional.launches, sk.query_topk_fused.launches)
+    vals1, ids1 = sk.query_topk_per_query(bundle, q, index, k=20)
+    vals2, ids2 = sk.query_topk_fused(bundle, q, index, k=20)
+    torch.cuda.synchronize()
+    assert (sk.score_bidirectional.launches, sk.query_topk_fused.launches) == (before[0] + 2, before[1] + 2)
+    assert vals1.shape == vals2.shape == (70_000, 20)
+    rows = torch.tensor([0, 1, 65533, 65534, 65535, 65536, 69998, 69999], device=cuda)
+    args = (bundle, q[rows], index.head_repr, index.rel_repr, index.tail_repr, index.struct_raw)
+    _hold_topk(vals1[rows], ids1[rows], sk.score_bidirectional_reference(*args), 20, 1e-3)
+    _hold_topk(vals2[rows], ids2[rows], sk.fused_scores_reference(*args), 20, 1e-3)
+
+
+def _route_bundle(emb, rounds, seed):
+    """A flax-initialised retriever bundle with ``rounds`` DDE rounds each
+    way (struct width 4 (1 + 2 rounds)), on the card."""
+    from evi_rag_tpu_torch.models.retriever import Retriever, init_parameters, params_to_numpy
+    from evi_rag_tpu_torch.train.checkpoint import export_retriever_features
+
+    model = Retriever(emb_dim=emb, hidden_dim=128, dde_rounds=rounds, dde_reverse_rounds=rounds)
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    exported = export_retriever_features(params_to_numpy(model)["params"], model.parity_meta())
+    return {"features": bundle_from_numpy(exported["features"], device="cuda")}
+
+
+@pytest.mark.parametrize("emb,rounds,k,routed", [(96, 2, 20, True), (64, 4, 20, True), (64, 2, 1500, True),
+                                                 (64, 2, 20, False)], ids=["emb96", "s36", "k1500", "supported"])
+def test_serve_routes_shapes_the_kernel_refuses(cuda, emb, rounds, k, routed):
+    """emb_dim 96, S = 36 and k = 1500: no kernel-3 launch, and the serve
+    equals the plain serve (every bucket on the plain bf16 scorer) bit for
+    bit; a shape the kernel takes still launches it."""
+    from evi_rag_tpu_torch.data.synthetic import make_synthetic_dataset
+    from evi_rag_tpu_torch.serving import serve_split
+
+    ds = make_synthetic_dataset(num_samples=24, emb_dim=emb, max_nodes=64, seed=5)
+    bundle = _route_bundle(emb, rounds, seed=5)
+    kw = dict(entity_emb=ds.entity_emb, relation_emb=ds.relation_emb, question_emb=ds.question_emb, k=k,
+              num_rounds=rounds, num_reverse_rounds=rounds, group_size=8, device=cuda)
+    before = sk.per_question_topk.launches
+    served, _ = serve_split(bundle, ds.samples, fused_threshold=32, **kw)
+    assert (sk.per_question_topk.launches == before) is routed
+    if not routed:
+        return
+    plain, _ = serve_split(bundle, ds.samples, fused_threshold=1 << 30, **kw)
+    for a, b, smp in zip(served, plain, ds.samples):
+        assert a.sample_id == b.sample_id == smp.sample_id
+        assert a.edge_ids.size == min(k, smp.edge_index.shape[1])
+        np.testing.assert_array_equal(a.edge_ids, b.edge_ids)
+        np.testing.assert_array_equal(a.scores, b.scores)
 
 
 @pytest.mark.parametrize("entries", [1, 4])

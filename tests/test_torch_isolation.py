@@ -1,8 +1,9 @@
 """The port stands alone and runs on the GPU unless told otherwise.
 
-* No file of ``evi_rag_tpu_torch/`` and not ``chip_smoke.py`` imports JAX,
-  flax, optax, orbax or anything of ``evi_rag_tpu`` (an AST scan, so lazy
-  imports inside functions count too).
+* No file of ``evi_rag_tpu_torch/`` (its ``scripts/`` too) and not
+  ``chip_smoke.py`` imports JAX, flax, optax, orbax or anything of
+  ``evi_rag_tpu`` (an AST scan, so lazy imports inside functions count
+  too); the port's shell drivers call the port's CLI and never the JAX one.
 * ``pyarrow``, ``transformers``, ``safetensors``, ``tiktoken``, ``openai``
   and ``vllm`` (absent on the card's machine, or optional backends) are
   imported only inside the functions that need them.
@@ -26,6 +27,19 @@ def _port_files():
     files = sorted((ROOT / "evi_rag_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     return files
+
+
+def test_scan_covers_the_port_scripts():
+    scanned = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert {"evi_rag_tpu_torch/scripts/__init__.py", "evi_rag_tpu_torch/scripts/benchmark_quality.py",
+            "evi_rag_tpu_torch/scripts/quality_gate.py"} <= scanned
+
+
+@pytest.mark.parametrize("name", ["run_full_pipeline.sh", "run_retriever_mask_ablation.sh"])
+def test_port_shell_drivers_call_the_port_cli(name):
+    text = (ROOT / "evi_rag_tpu_torch" / "scripts" / name).read_text()
+    assert 'CLI="python -m evi_rag_tpu_torch.cli"' in text
+    assert "evi_rag_tpu.cli" not in text and "import jax" not in text
 
 
 def _imported_modules(path: pathlib.Path):
@@ -186,6 +200,18 @@ def test_gflownet_entry_points_raise_without_gpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_gflownet_params(cfg, modules)
     assert init_gflownet_params(cfg, modules, device="cpu")["policy"]["params"]["attn_q"]["kernel"].shape == (8, 8)
+
+
+def test_quality_entry_points_raise_without_gpu(monkeypatch):
+    """The quality gate and the quality baseline run on the card unless the
+    CPU is named."""
+    from evi_rag_tpu_torch.scripts import benchmark_quality, quality_gate
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quality_gate.quality_gate()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        benchmark_quality.run(samples=16, epochs=1)
 
 
 @pytest.mark.parametrize("knob", ["sample_then_score", "remat_dots", "stacked"])
