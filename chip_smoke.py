@@ -103,8 +103,15 @@ debug. ``experiment=debug`` (``extras.deterministic`` and
    in a backward op raises.  (e) a NaN learning rate raises
    ``FloatingPointError`` in the first step (non-zero exit, no
    ``ckpt/best``); a NaN row of W1 in the checkpoint raises it from kernel
-   3's wrapper, which names the kernel.  (d) and (e) run at once.  Each
-   run's stdout and stderr under ``chiprun_out/chip_smoke_debug/``;
+   3's wrapper, which names the kernel.  (d) and (e) run at once.  (f)
+   ``build`` (9c's gte-large geometry with random weights on a few dozen
+   texts, so that SDPA runs), ``eval_retriever`` (8a's checkpoint and
+   validation split), ``eval_gflownet`` (8b's checkpoint and validation
+   store) and ``sweep`` (2 trials of 1 epoch at production width), each twice
+   under the profile and once without extras, in two waves of fresh
+   processes (``FOUR_TASK_WAVES``): the outputs' digests (``testing.output_digest``: the stores and embeddings,
+   the records, checkpoints and ``metrics.json`` without run times) equal.
+   Each run's stdout and stderr under ``chiprun_out/chip_smoke_debug/``;
 9. the data build (no kernel lies on it: the gte GEMMs and attention are
    library calls).  9a: ``csrc/graphcore.cpp`` built with g++ and held to
    the numpy BFS engine on random graphs in both path modes.  9b: gte-large
@@ -165,19 +172,28 @@ debug. ``experiment=debug`` (``extras.deterministic`` and
    (``scripts/benchmark_quality.py``) at seed 0 held to the CPU seed-spread
    bar (``QUALITY_BAR``); ``eval_retriever`` of the baseline's retriever
    on the card against the CPU at f32 (metrics within 1e-4, ranked edges
-   equal by the near-tie rule).
+   equal by the near-tie rule).  12c (run after the debug phase, while
+   phase 8's checkpoint and stores exist): ``eval_gflownet`` of 8b's
+   checkpoint on the first ``EVAL_GFN_SAMPLES`` samples of 8a's validation
+   store, on the card and on the CPU at f32 (TF32 off), both with one set of
+   rollout draws made on a CPU generator (``actor.make_rollout_draws``) and
+   moved to the card: rollouts, hits and records equal, every metric within
+   1e-4, a differing action only at a near tie (8f's rule).
 
 ``python3 chip_smoke.py --quality`` runs only the WebQSP-scale chain of
 ``scripts/run_webqsp_synth_hw.sh`` on the card: ``testing.synthetic_rows``'
 WebQSP preset (2826 / 246 / 1628 questions) built with the hash encoder at
 D = 1024 (``read_raw_rows`` + ``build_from_samples``), then the port's CLI
-under ``experiment=webqsp_synth_hw`` with 8 retriever and 2 GFlowNet epochs:
-train_retriever, eval_retriever over both dataset variants,
-train_gflownet, eval_gflownet (25 rollouts), reasoner (oracle) and serve
-(k = 100, kernel 3).  Every stage must exit 0 and write its manifest; it
-prints each stage's wall seconds and round 4's metrics
-(``docs/RESULTS_synthetic.md``) beside the TPU run's values (~12.5 min on
-the H100; the dataset, checkpoints and artifacts go to
+under ``experiment=webqsp_synth_hw`` at the config's own epochs (14
+retriever and 20 GFlowNet epochs, patience 4 each): train_retriever,
+eval_retriever over both dataset variants, train_gflownet, eval_gflownet
+(25 rollouts), reasoner (oracle) and serve (k = 100, kernel 3).  Every
+stage must exit 0 and write its manifest; it prints each stage's wall
+seconds, the validation monitor of every training epoch with the best
+epoch (and the epoch where patience stopped a run), and round 4's metrics
+(``docs/RESULTS_synthetic.md``) beside the TPU run's values and the reduced
+CPU chain's JAX values (``CPU_CHAIN_JAX``, marked reduced-scale) (~30 min
+on the H100; the dataset, checkpoints and artifacts go to
 ``chiprun_out/chip_smoke_quality/work/`` and are removed when the chain
 ends).
 
@@ -2460,6 +2476,14 @@ DEBUG_DIR = OUT_DIR / "chip_smoke_debug"  # the runs' logs stay
 DEBUG_WORK = DEBUG_DIR / "work"           # their checkpoints, removed when the phase ends
 DEBUG_B = 16               # (d): queries of phase 6's inputs
 NAN_ROW = 5                # (e): the row of W1 set to NaN (the inter block, which kernel 3 reads)
+# (f): the build's rows, a few dozen texts (pool entities, relations and
+# questions) of the WebQSP preset; the sweep's trials.
+DEBUG_BUILD_ROWS = dict(counts={"train": 0, "validation": 3, "test": 0}, pool=40, relations=8, edge_cap=24)
+DEBUG_SWEEP_TRIALS = 2
+FOUR_TASKS = ("build", "eval_retriever", "eval_gflownet", "sweep")
+# (f) runs in two waves of fresh processes: twelve at once (three sweeps at
+# ~11.5 GiB each among them) can fill the card's 80 GB.
+FOUR_TASK_WAVES = (("build", "eval_retriever", "eval_gflownet"), ("sweep",))
 DEBUG_CHILD = "import sys, chip_smoke; sys.exit(chip_smoke.debug_child(sys.argv[1]))"
 
 
@@ -2471,6 +2495,7 @@ def debug_child(spec: str) -> int:
     ``serve_split`` returns hashed; ``{"kernels": true}`` runs ``debug_kernels``.  Prints
     ``DEBUG_CHILD <json>`` as its last stdout line, also when the run raises
     (the exception then ends the process with a non-zero code)."""
+    import contextlib
     import hashlib
     from unittest import mock
 
@@ -2488,6 +2513,7 @@ def debug_child(spec: str) -> int:
         print("DEBUG_CHILD " + json.dumps(debug_kernels()), flush=True)
         return 0
     out: dict = {"steps_ms": [], "serve_sha256": None}
+    patches = debug_build_patches(**spec["build_rows"]) if spec.get("build_rows") else []
 
     def timed(make):
         def made(*a, **kw):
@@ -2529,12 +2555,46 @@ def debug_child(spec: str) -> int:
             mock.patch.object(rt, "make_train_step", timed(rt.make_train_step)), \
             mock.patch.object(gt, "make_gfn_train_step", timed(gt.make_gfn_train_step)), \
             mock.patch.object(serving, "serve_split", hashed), \
-            mock.patch.dict(cli.TASKS, {spec["argv"][0]: task_timed}):
+            mock.patch.dict(cli.TASKS, {spec["argv"][0]: task_timed}), contextlib.ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
         try:
             return cli.main(spec["argv"])
         finally:
             out["pqt_launches"] = sk.per_question_topk.launches
             print("DEBUG_CHILD " + json.dumps(out), flush=True)
+
+
+def debug_build_patches(gte: dict, rows: dict) -> list:
+    """(f)'s ``build`` through the CLI: its encoder is gte at ``gte``'s
+    geometry with random weights (seed 23, as 9b) and the stand-in
+    tokenizer, made inside the task (so under the profile's modes: the model
+    is made on the meta device, then loaded), and its raw rows come from
+    memory (``testing.synthetic_rows``' WebQSP preset at ``rows``' sizes);
+    the parquet tables are written where pyarrow imports."""
+    import importlib.util
+    from unittest import mock
+
+    from evi_rag_tpu_torch import cli
+    from evi_rag_tpu_torch.data import pipeline
+    from evi_rag_tpu_torch.data.gte import GTEConfig, GTEModel, GTETextEncoder
+    from evi_rag_tpu_torch.testing import HashTokenizer, random_gte_state, synthetic_rows
+
+    def text_encoder(enc_cfg, device):
+        cfg = GTEConfig(**gte)
+        model = GTEModel.from_state_dict(random_gte_state(cfg, seed=23), cfg, device=device)
+        return GTETextEncoder.from_model(model, HashTokenizer(cfg.vocab_size), max_length=GTE_LEN)
+
+    def build_pipeline(cfg, encoder, *, column_map=None):
+        res, tables = pipeline.build_from_samples(cfg, encoder, pipeline.read_raw_rows(
+            list(synthetic_rows("webqsp", seed=0, **rows)), cfg.dataset, column_map=column_map,
+            entity_normalization=cfg.entity_normalization))
+        if importlib.util.find_spec("pyarrow") is not None:
+            pipeline.write_tables(res.out_dir, tables)
+        return res
+
+    return [mock.patch.object(cli, "_text_encoder", text_encoder),
+            mock.patch.object(pipeline, "build_pipeline", build_pipeline)]
 
 
 def debug_kernels() -> dict:
@@ -2626,7 +2686,9 @@ def phase_debug(smi: str, retriever_ckpt: str) -> dict:
     twice under ``experiment=debug``; (b) ``train_gflownet`` at 8b's width on
     8a's stores, 1 epoch, without extras and twice under the profile; (c)
     ``serve`` of (a)'s checkpoint under the profile and without it; (d)
-    ``debug_kernels``; (e) a NaN learning rate and a NaN row of W1."""
+    ``debug_kernels``; (e) a NaN learning rate and a NaN row of W1; (f)
+    ``build``, ``eval_retriever``, ``eval_gflownet`` and ``sweep`` twice under
+    the profile and once without extras (``debug_four_tasks``)."""
     DEBUG_DIR.mkdir(parents=True, exist_ok=True)
     try:
         return debug_runs(smi, retriever_ckpt)
@@ -2743,6 +2805,65 @@ def debug_runs(smi: str, retriever_ckpt: str) -> dict:
         f"ckpt/best, \"{e1['error']}\"; NaN in row {NAN_ROW} of W1 ({key}), serve experiment=debug: exit code "
         f"{e2['rc']}, \"{e2['error']}\"; (d) and (e) ran at once in {max(r['wall_s'] for r in de.values()):.1f} s")
     out["e"] = dict(nan_lr=e1["error"], nan_w1=e2["error"])
+    out["f"] = debug_four_tasks(common, modes, retriever_ckpt)
+    return out
+
+
+def debug_four_tasks(common: list, modes: dict, retriever_ckpt: str) -> dict:
+    """(f): ``build``, ``eval_retriever``, ``eval_gflownet`` and ``sweep``
+    twice under ``experiment=debug`` and once without extras, each run a
+    fresh process writing under ``DEBUG_WORK``, in ``FOUR_TASK_WAVES`` (the
+    runs of a wave at once): the digests of each task's outputs
+    (``testing.output_digest``) equal."""
+    from evi_rag_tpu_torch.testing import output_digest
+
+    data = [f"retriever.model.emb_dim={D}", f"retriever.model.hidden_dim={H}", "retriever.model.compute_dtype=bfloat16"]
+    per_task = {
+        "build": ["build.dataset=webqsp_synth", "build.raw_root=unused"],
+        "eval_retriever": [*data, f"retriever.ckpt={retriever_ckpt}", "eval.splits=[validation]"],
+        "eval_gflownet": [*data, f"gflownet.hidden_dim={H}", f"gflownet.ckpt={GFN_WORK / 'gfn' / 'best'}",
+                          f"gflownet.g_agent_dir={GFN_WORK / 'art' / 'g_agent'}",
+                          f"gflownet.eval_rollouts={GFN_EVAL_ROLLOUTS}", "eval.splits=[validation]"],
+        "sweep": ["sweep=retriever_lr", "retriever=production", f"sweep.num_trials={DEBUG_SWEEP_TRIALS}",
+                  "retriever.train.max_epochs=1", "retriever.train.optimizer.schedule=constant"],
+    }
+    runs, where = {task: {} for task in FOUR_TASKS}, {}
+    for task in FOUR_TASKS:
+        for name in ("off", "debug1", "debug2"):
+            label, w = f"f_{task}_{name}", DEBUG_WORK / f"f_{task}_{name}"
+            out_key = {"build": "build.out_dir", "sweep": None}.get(task, "eval.artifacts_dir")
+            argv = [task, *common, *per_task[task], *modes[name], f"paths.log_dir={w / 'logs'}"]
+            if out_key:
+                argv.append(f"{out_key}={w / 'out'}")
+            spec = {"argv": argv}
+            if task == "build":
+                spec["build_rows"] = {"gte": GTE, "rows": DEBUG_BUILD_ROWS}
+            runs[task][label], where[label] = (spec, False), w
+    recs, t0 = {}, time.perf_counter()
+    for wave in FOUR_TASK_WAVES:
+        recs.update(run_debug_children({k: v for task in wave for k, v in runs[task].items()}))
+    out: dict = {}
+    for task in FOUR_TASKS:
+        digests = {}
+        for name in ("off", "debug1", "debug2"):
+            w = where[f"f_{task}_{name}"]
+            if task == "sweep":
+                (doc,) = (w / "logs").glob("**/sweep.json")
+                roots = (doc.parent,)
+                statuses = [tr["status"] for tr in json.loads(doc.read_text())["trials"]]
+                if statuses != ["ok"] * DEBUG_SWEEP_TRIALS:
+                    raise AssertionError(f"debug f: sweep {name} trials {statuses}")
+            else:
+                roots = (w / "out", sorted((w / "logs").glob("**/metrics.json"))[-1])
+            digests[name] = output_digest(*roots)
+        if len(set(digests.values())) != 1:
+            raise AssertionError(f"debug f: {task} outputs differ: {digests}")
+        task_s = {n: round(recs[f"f_{task}_{n}"]["task_s"], 1) for n in digests}
+        out[task] = dict(digest=digests["off"], task_s=task_s)
+        log(f"[debug f] {task} under experiment=debug twice and without extras: one output digest "
+            f"{digests['off'][:16]}... in all three runs; task s {task_s}")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[debug f] the twelve runs in {len(FOUR_TASK_WAVES)} waves in {out['wall_s']:.1f} s")
     return out
 
 
@@ -3001,7 +3122,8 @@ QUALITY_BAR = {
     "oracle/answer_hit@10": (0.68875, 0.93625),
     "gflownet/answer_hit@4": (0.50125, 0.74875),
 }
-EVAL_ATOL = 1e-4            # 12b: eval_retriever metrics, the card vs the CPU at f32
+EVAL_ATOL = 1e-4            # 12b / 12c: eval metrics, the card vs the CPU at f32
+EVAL_GFN_SAMPLES = 32       # 12c: the first agent samples of 8a's validation store (4 batches of 8)
 # --quality: round 4 of docs/RESULTS_synthetic.md (JAX, TPU v5e): quality
 # values to set the card's beside, never times.
 ROUND4 = {
@@ -3018,6 +3140,17 @@ ROUND4 = {
     "eval_gflownet test answer_hit@1 / @10 / @25": (0.24, 0.53, 0.67),
     "reasoner oracle hit@100 validation / test": (0.83, 0.81),
     "serve recall@100 (validation + test)": 0.81,
+}
+# --quality: the JAX package's values on the reduced CPU chain
+# (``tests/test_torch_quality_baseline.py --chain``: the same preset cut to
+# 512 / 64 / 64 questions, D = H = 64, 8 epochs, JAX's own init at bf16),
+# validation only, the mean over seeds 0-2 at each seed's best epoch (the
+# checkpoint the card's rows report).  Reduced scale: a neighbour of the
+# card's run, not its reference.
+CPU_CHAIN_JAX = {
+    "train_retriever answer/reachability@100 (validation)": 0.406,
+    "eval edge/recall@10 train / validation / test": (None, 0.060, None),
+    "eval edge/recall@100": (None, 0.447, None),
 }
 
 
@@ -3306,6 +3439,119 @@ def eval_card_vs_cpu(result) -> dict:
     return dict(metrics=len(keys), max_metric_diff=max_diff, swaps=swaps, max_score_diff=max_score_diff, wall_s=wall)
 
 
+def phase_eval_gflownet_card_vs_cpu(smi: str, load_split, *, devices: tuple[str, str] = ("cuda", "cpu")) -> dict:
+    """12c: ``eval_gflownet`` of 8b's checkpoint over the first
+    ``EVAL_GFN_SAMPLES`` samples of 8a's validation store, through the CLI on
+    the card and on the CPU (f32, TF32 off), with one set of rollout draws:
+    each rollout's Gumbel uniforms are made by ``actor.make_rollout_draws``
+    on a CPU generator seeded 7 (one per run, so both runs draw the same
+    numbers in the same order) and moved to the rollout's device.  The
+    rollouts, hits and records must be equal and every metric within
+    ``EVAL_ATOL``; an action may differ only at a near tie (8f's rule:
+    Gumbel margin <= ``STS_MARGIN`` x max(1, |score|) at the first differing
+    step, replayed on the CPU), and then only that graph's record and the
+    metrics by its share.  ``load_split`` gives the tables of 8a's splits
+    (``realistic_loader``); ``devices`` names the two runs (a dry run on a
+    machine without a card passes ``("cpu", "cpu")``)."""
+    import itertools
+    import types
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from evi_rag_tpu_torch import cli
+    from evi_rag_tpu_torch.models.gflownet import actor
+    from evi_rag_tpu_torch.testing import STS_MARGIN, gumbel_margin
+    from evi_rag_tpu_torch.train import gflownet_trainer as gt
+
+    configs, art = str(ROOT / "configs"), GFN_WORK / "art"
+    make_draws, agent_batches, rollout = actor.make_rollout_draws, cli._agent_batches_fn, gt.rollout
+    actions: dict[str, list] = {}
+    near_ties: list[dict] = []
+    made: dict = {}
+    metrics, records, wall = {}, {}, {}
+
+    def first_samples(cfg, split, batch_size, **kw):
+        if EVAL_GFN_SAMPLES % batch_size:
+            raise ValueError(f"12c: {EVAL_GFN_SAMPLES} samples are no whole number of batches of {batch_size}")
+        samples, batches, emb = agent_batches(cfg, split, batch_size, **kw)
+        return samples[:EVAL_GFN_SAMPLES], lambda epoch=0: itertools.islice(
+            batches(epoch), EVAL_GFN_SAMPLES // batch_size), emb
+
+    for run, dev in zip(("card", "cpu"), devices):
+        gen = torch.Generator().manual_seed(7)
+        seen = actions.setdefault(run, [])
+
+        def cpu_draws(config, batch, **kw):
+            gb = batch.graph
+            stand_in = types.SimpleNamespace(graph=types.SimpleNamespace(
+                edge_batch=torch.empty(0), num_edges=gb.num_edges, num_graphs=gb.num_graphs))
+            kw["generator"] = gen
+            made["draws"] = {k: v.to(gb.edge_batch.device) for k, v in make_draws(config, stand_in, **kw).items()}
+            return made["draws"]
+
+        def recorded(**kw):
+            ro = rollout(**kw)
+            kw["draws"] = made["draws"]  # the eval rollout draws its own (through cpu_draws)
+            acts = ro["actions_seq"].cpu()
+            if run == "cpu":  # the card's run came first: compare this call's actions with its
+                card = actions["card"][len(seen)]
+                for gi in torch.nonzero((acts != card).any(dim=1)).flatten().tolist():
+                    step = int(torch.nonzero(acts[gi] != card[gi])[0])
+                    margin, score = gumbel_margin(kw, acts, gi, step)
+                    near_ties.append(dict(call=len(seen), graph=gi, step=step, margin=margin, score=score,
+                                          near_tie=margin <= STS_MARGIN * max(1.0, abs(score))))
+            seen.append(acts)
+            return ro
+
+        logs = GFN_DIR / "logs" / f"eval_gflownet_12c_{run}"
+        t0 = time.perf_counter()
+        with mock.patch.object(actor, "make_rollout_draws", cpu_draws), mock.patch.object(gt, "rollout", recorded), \
+                mock.patch.object(cli, "_agent_batches_fn", first_samples), \
+                mock.patch.object(cli, "_load_split", load_split):
+            rc = cli.main(["eval_gflownet", "--configs-dir", configs, f"device={dev}", f"retriever.model.emb_dim={D}",
+                           f"retriever.model.hidden_dim={H}", f"gflownet.hidden_dim={H}",
+                           f"gflownet.ckpt={GFN_WORK / 'gfn' / 'best'}", f"gflownet.g_agent_dir={art / 'g_agent'}",
+                           f"gflownet.eval_rollouts={GFN_EVAL_ROLLOUTS}", "eval.splits=[validation]",
+                           f"eval.artifacts_dir={GFN_WORK / f'eval_12c_{run}'}", "extras.print_config=false",
+                           f"paths.log_dir={logs}"])
+        wall[run] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"12c eval_gflownet on {dev}: exit {rc}")
+        metrics[run] = latest_metrics(logs)
+        path = GFN_WORK / f"eval_12c_{run}" / "eval_gflownet" / "validation.jsonl"
+        records[run] = [json.loads(ln) for ln in path.read_text().splitlines()]
+    far = [t for t in near_ties if not t["near_tie"]]
+    if far:
+        raise AssertionError(f"12c: actions differ away from a near tie: {far}")
+    if len(records["card"]) != len(records["cpu"]) or len(records["cpu"]) != EVAL_GFN_SAMPLES:
+        raise AssertionError(f"12c: {len(records['card'])} / {len(records['cpu'])} records")
+    differing = [i for i, (a, b) in enumerate(zip(records["card"], records["cpu"])) if a != b]
+    allowed = len({(t["call"], t["graph"]) for t in near_ties})
+    if len(differing) > allowed:
+        raise AssertionError(f"12c: records {differing} differ, {allowed} near ties")
+    keys = sorted(k for k in metrics["cpu"] if isinstance(metrics["cpu"][k], (int, float)))
+    if sorted(k for k in metrics["card"] if k in set(keys)) != keys:
+        raise AssertionError("12c: the card and the CPU report other metrics")
+    # Within EVAL_ATOL of O(1) values (relative above 1), plus each near-tie
+    # graph's share of a rate.
+    diff = {k: abs(metrics["card"][k] - metrics["cpu"][k]) / max(1.0, abs(metrics["cpu"][k])) for k in keys}
+    worst = max(diff, key=diff.get)
+    slack = EVAL_ATOL + allowed / EVAL_GFN_SAMPLES
+    if diff[worst] > slack:
+        raise AssertionError(f"12c: {worst} card {metrics['card'][worst]} vs CPU {metrics['cpu'][worst]}")
+    hits = sum(r["answer_hit_rate"] > 0 for r in records["cpu"])
+    log(f"[12c eval_gflownet] 8b's checkpoint on the first {EVAL_GFN_SAMPLES} samples of 8a's validation store, "
+        f"{GFN_EVAL_ROLLOUTS} rollouts, card vs CPU (f32, TF32 off, one set of draws made on a CPU generator): "
+        f"{len(records['cpu'])} records, {len(differing)} differing; actions differing at "
+        f"{len(near_ties)} graph(s), all at near ties ({[round(t['margin'], 9) for t in near_ties]}); {len(keys)} "
+        f"metrics within {diff[worst]:.3e} (worst {worst}; tol {slack:.3e}, relative above 1); samples with a hit "
+        f"{hits}; task wall s card {wall['card']:.1f}, CPU {wall['cpu']:.1f}; {smi}")
+    return dict(records=len(records["cpu"]), differing_records=differing, near_ties=near_ties,
+                metrics=len(keys), max_metric_diff=diff[worst], worst=worst, wall_s=wall)
+
+
 def phase_quality_chain(smi: str, *, counts: dict | None = None, dim: int = D, device: str = "cuda",
                         extra: tuple = ()) -> dict:
     """``--quality``: the WebQSP-scale chain of ``scripts/run_webqsp_synth_hw.sh``
@@ -3313,9 +3559,10 @@ def phase_quality_chain(smi: str, *, counts: dict | None = None, dim: int = D, d
     WebQSP preset (all three splits; ``counts`` cuts them for a dry run)
     built with the hash encoder at ``dim`` through ``read_raw_rows`` +
     ``build_from_samples`` (no parquet), then ``experiment=webqsp_synth_hw``
-    with round 4's 8 retriever and 2 GFlowNet epochs: every stage exit 0
-    with its manifest, serve through kernel 3; stage seconds and the round-4
-    metrics beside the TPU run's quality values."""
+    at the config's own epochs (14 retriever, 20 GFlowNet, patience 4):
+    every stage exit 0 with its manifest, serve through kernel 3; stage
+    seconds, each training stage's monitor by epoch (``epoch_monitor``) and
+    the round-4 metrics beside the TPU run's quality values."""
     QUALITY_DIR.mkdir(parents=True, exist_ok=True)
     try:
         return quality_chain(smi, counts, dim, device, list(extra))
@@ -3373,14 +3620,13 @@ def quality_chain(smi: str, counts, dim: int, device: str, extra: list) -> dict:
     ckpt = QUALITY_WORK / "ckpt"
     sub = "dataset=webqsp_synth-sub"
     stages = [
-        ("train_retriever", ["train_retriever", sub, f"retriever.train.ckpt_dir={ckpt / 'retriever'}",
-                             "retriever.train.max_epochs=8"]),
+        ("train_retriever", ["train_retriever", sub, f"retriever.train.ckpt_dir={ckpt / 'retriever'}"]),
         *((f"eval_retriever:{v}", ["eval_retriever", f"dataset={v}", f"retriever.ckpt={ckpt / 'retriever' / 'best'}",
                                    "eval.splits=[train, validation, test]", f"eval.artifacts_dir={art / v}"])
           for v in ("webqsp_synth", "webqsp_synth-sub")),
         ("train_gflownet", ["train_gflownet", sub, f"retriever.ckpt={ckpt / 'retriever' / 'best'}",
                             f"gflownet.g_agent_dir={art / 'webqsp_synth-sub' / 'g_agent'}",
-                            f"gflownet.ckpt_dir={ckpt / 'gflownet'}", "gflownet.max_epochs=2"]),
+                            f"gflownet.ckpt_dir={ckpt / 'gflownet'}"]),
         ("eval_gflownet", ["eval_gflownet", sub, f"gflownet.ckpt={ckpt / 'gflownet' / 'best'}",
                            f"gflownet.g_agent_dir={art / 'webqsp_synth-sub' / 'g_agent'}",
                            "eval.splits=[validation, test]", f"eval.artifacts_dir={art / 'webqsp_synth-sub'}"]),
@@ -3390,6 +3636,7 @@ def quality_chain(smi: str, counts, dim: int, device: str, extra: list) -> dict:
                    "serve.splits=[validation, test]", f"serve.k={K}", "serve.k_values=[1, 10, 100]"]),
     ]
     metrics: dict[str, dict] = {}
+    epochs: dict[str, dict] = {}
     launches = 0
     with contextlib.ExitStack() as stack:
         for patch in patches:
@@ -3406,6 +3653,8 @@ def quality_chain(smi: str, counts, dim: int, device: str, extra: list) -> dict:
             if name == "serve":
                 launches = sk.per_question_topk.launches
             log(f"[quality {name}] exit 0 in {stage_s[name]:.1f} s")
+            if name.startswith("train_"):
+                epochs[name] = epoch_monitor(logs, name, extra)
     manifests = {
         "train_retriever": ckpt / "retriever" / "best" / "meta.json",
         "eval_retriever:webqsp_synth": art / "webqsp_synth" / "g_agent" / "test" / "manifest.json",
@@ -3419,8 +3668,9 @@ def quality_chain(smi: str, counts, dim: int, device: str, extra: list) -> dict:
         raise AssertionError(f"quality: manifests missing {missing}, serve manifests {serve_runs}, kernel-3 "
                              f"launches {launches}")
     table = chain_table(metrics)
-    for row, (got, tpu) in table.items():
-        log(f"[quality table] {row}: card {got} | TPU v5e round 4 {tpu}")
+    for row, (got, tpu, cpu) in table.items():
+        log(f"[quality table] {row}: card {got} | TPU v5e round 4 {tpu} | reduced CPU chain, JAX "
+            f"{'-' if cpu is None else cpu} (reduced scale)")
     sv = metrics["serve"]
     log(f"[quality] stage wall s {json.dumps({k: round(v, 1) for k, v in stage_s.items()})}; serve kernel-3 "
         f"launches {launches}, q/s validation {sv.get('validation/queries_per_s')} test "
@@ -3428,11 +3678,38 @@ def quality_chain(smi: str, counts, dim: int, device: str, extra: list) -> dict:
     finite = [v for m in metrics.values() for v in m.values() if isinstance(v, float)]
     if not np.isfinite(finite).all():
         raise AssertionError("quality: a stage reported a non-finite metric")
-    return dict(stage_s=stage_s, serve_launches=launches, table=table, metrics=metrics, sizes=sizes)
+    return dict(stage_s=stage_s, serve_launches=launches, table=table, metrics=metrics, sizes=sizes, epochs=epochs)
+
+
+def epoch_monitor(logs: pathlib.Path, stage: str, extra: list) -> dict:
+    """The validation monitor of every epoch of a training stage (its
+    ``metrics.jsonl``), the best epoch, and whether patience ended the run
+    before the config's epochs (``experiment=webqsp_synth_hw``, or an
+    ``extra`` override)."""
+    from evi_rag_tpu_torch.utils.config import load_config
+
+    retriever = stage == "train_retriever"
+    cfg = load_config(str(ROOT / "configs"), stage, ["experiment=webqsp_synth_hw", *extra])
+    section = cfg["retriever"]["train"] if retriever else cfg["gflownet"]
+    key = section.get("monitor", "answer/reachability@100" if retriever else "answer_hit")
+    (history,) = logs.glob("**/metrics.jsonl")
+    rows = [json.loads(ln) for ln in history.read_text().splitlines()]
+    values = [r.get(key) for r in rows]
+    best = max(range(len(values)), key=lambda i: values[i])
+    out = dict(monitor=key, values=values, best_epoch=best, epochs=len(values),
+               max_epochs=int(section["max_epochs"]), patience=int(section["patience"]),
+               stopped_early=len(values) < int(section["max_epochs"]))
+    log(f"[quality {stage}] validation {key} by epoch: {', '.join(f'{v:.4f}' for v in values)}; best epoch {best} "
+        f"({values[best]:.4f}); {len(values)} of {out['max_epochs']} epochs"
+        + (f" (patience {out['patience']} stopped the run after epoch {len(values) - 1})" if out["stopped_early"]
+           else ""))
+    return out
 
 
 def chain_table(metrics: dict) -> dict:
-    """Round 4's rows (``ROUND4``): the card's values beside the TPU run's."""
+    """Round 4's rows (``ROUND4``): the card's values beside the TPU run's
+    and the reduced CPU chain's JAX values (``CPU_CHAIN_JAX``) where it has
+    the row."""
     def r(v):
         return None if v is None else round(float(v), 3)
 
@@ -3459,7 +3736,7 @@ def chain_table(metrics: dict) -> dict:
         "serve recall@100 (validation + test)": (r(sv.get("validation/serve/recall@100")),
                                                  r(sv.get("test/serve/recall@100"))),
     }
-    return {row: (got[row], tpu) for row, tpu in ROUND4.items()}
+    return {row: (got[row], tpu, CPU_CHAIN_JAX.get(row)) for row, tpu in ROUND4.items()}
 
 
 def main() -> int:
@@ -3490,7 +3767,7 @@ def main() -> int:
         chain["wall_s"] = time.perf_counter() - t_all
         (OUT_DIR / "chip_smoke_quality.json").write_text(json.dumps(chain, indent=2, default=str))
         log(f"[done] wall {chain['wall_s']:.1f} s; details in chiprun_out/chip_smoke_quality.json")
-        log(json.dumps({"quality": {k: chain[k] for k in ("stage_s", "serve_launches", "table", "sizes")}}))
+        log(json.dumps({"quality": {k: chain[k] for k in ("stage_s", "serve_launches", "table", "sizes", "epochs")}}))
         log(smi)
         log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
@@ -3508,6 +3785,7 @@ def main() -> int:
     gflownet = phase_gflownet(smi, train["retriever_ckpt"], load_split)
     try:
         debug = phase_debug(smi, train["retriever_ckpt"])
+        eval_gfn = phase_eval_gflownet_card_vs_cpu(smi, load_split)
     finally:
         shutil.rmtree(GFN_WORK)  # phase 8's ~100 MB of stores, records and checkpoints
     native_bfs = phase_native()
@@ -3569,7 +3847,7 @@ def main() -> int:
         })
     details = dict(nvidia_smi=smi, build_s=build_s, kernel=rows, serve=serve, cli=cli_metrics,
                    pooled=pooled, train=train, gflownet=gflownet, debug=debug, native_bfs=native_bfs, build=build, sweep=sweep,
-                   multi=multi, route=route, quality=quality, kernels=kernels,
+                   multi=multi, route=route, quality=quality, eval_gflownet_card_vs_cpu=eval_gfn, kernels=kernels,
                    wall_s=time.perf_counter() - t_all)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(details, indent=2, default=str))
     log(f"[done] wall {details['wall_s']:.1f} s; details in chiprun_out/chip_smoke.json")

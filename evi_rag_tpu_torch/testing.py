@@ -17,6 +17,9 @@ sample-then-score rollout to the canonical step loop on one batch and one
 set of draws; ``gumbel_margin`` is its diagnostic for a graph whose action
 differs.
 
+``output_digest`` hashes a task's output files without what varies from
+run to run (the debug profile's runs are held to the plain run by it).
+
 ``pqt_digest`` runs ``per_question_topk`` on a fixed input made with numpy
 from seeds and hashes its output; ``PQT_DIGEST`` pins that hash for the
 wgmma kernel (``csrc/twin_wgmma.cuh``, ``wg_kernel<kQuestion>``), so a match
@@ -359,6 +362,45 @@ def gumbel_margin(kw: dict, actions: torch.Tensor, graph: int, step: int) -> tup
                 return (float(top[0] - top[1]) if top.numel() > 1 else float("inf")), float(top[0])
             state = actor.advance(state, batch, actions[:, t].to(torch.int32), tokens, t, cfg)
     raise AssertionError("unreachable")
+
+
+# Keys that vary from run to run of one program: a manifest's time and
+# producer, a metric log line's time, a task's phase timers
+# (``<split>/phase/<name>_s``); and the run's config, which names its own
+# log dir.
+_RUN_KEYS = ("created_at", "producer", "_time")
+_RUN_FILES = ("config.json",)
+
+
+def _stable(node):
+    if isinstance(node, dict):
+        return {k: _stable(v) for k, v in node.items() if k not in _RUN_KEYS and "phase/" not in k}
+    if isinstance(node, list):
+        return [_stable(v) for v in node]
+    return node
+
+
+def output_digest(*roots) -> str:
+    """sha256 of a task's outputs: every file under each root (or the
+    root itself when it is a file) but ``_RUN_FILES``, in path order, names
+    and bytes; JSON files (and each line of a JSON-lines file) without the
+    keys that vary from run to run (``_RUN_KEYS``, phase timers)."""
+    h = hashlib.sha256()
+    for root in map(pathlib.Path, roots):
+        files = [root] if root.is_file() else sorted(
+            f for f in root.rglob("*") if f.is_file() and f.name not in _RUN_FILES)
+        if not files:
+            raise FileNotFoundError(f"no outputs under {root}")
+        for f in files:
+            h.update((f.name if f == root else f.relative_to(root).as_posix()).encode() + b"\0")
+            data = f.read_bytes()
+            if f.suffix == ".json":
+                data = json.dumps(_stable(json.loads(data)), sort_keys=True).encode()
+            elif f.suffix == ".jsonl":
+                data = b"\n".join(json.dumps(_stable(json.loads(ln)), sort_keys=True).encode()
+                                  for ln in data.splitlines() if ln.strip())
+            h.update(data)
+    return h.hexdigest()
 
 
 # --------------------------------------------------------------------------- #

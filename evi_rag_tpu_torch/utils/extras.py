@@ -141,7 +141,9 @@ def resolve_platform(cfg: dict) -> None:
 class NanCheckMode(TorchDispatchMode):
     """Raise ``FloatingPointError`` at the first op whose floating output
     holds a NaN (forward and backward: autograd's ops pass through the mode
-    too), naming the op.  One device sync per checked op."""
+    too), naming the op.  One device sync per checked op.  Tensors on the
+    meta device hold no values (a model built there before its weights
+    load) and are not checked."""
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -149,7 +151,7 @@ class NanCheckMode(TorchDispatchMode):
             return out
         for t in tree_leaves(out):
             if (isinstance(t, torch.Tensor) and (t.is_floating_point() or t.is_complex()) and t.numel()
-                    and bool(torch.isnan(t).any())):
+                    and not t.is_meta and bool(torch.isnan(t).any())):
                 node = torch._C._current_autograd_node()
                 where = f" (backward of {node.name()})" if node is not None else ""
                 raise FloatingPointError(f"extras.debug_nans: {func} produced NaN{where}")

@@ -8,6 +8,11 @@
   does the chain through ``eval_retriever`` to ``train_gflownet`` and
   ``serve``; the JAX CLI finishes under it too.  JAX runs in a child
   process: ``jax_debug_nans`` and ``XLA_FLAGS`` are global to a process.
+* ``build`` (the gte encoder, whose model is made on the meta device
+  first), ``eval_retriever``, ``eval_gflownet`` and ``sweep`` under
+  ``experiment=debug`` give the outputs of their runs without extras
+  (``testing.output_digest``: stores, embeddings, records, checkpoints and
+  ``metrics.json`` without run times).
 * A NaN learning rate raises ``FloatingPointError`` in both packages and
   neither writes ``best``.
 * ``extras.platform``: ``cpu`` runs on the CPU; an unknown platform, or one
@@ -30,10 +35,13 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_build_common import write_fixture, write_tiny_gte
 from bench import build_inputs, make_bundle
 from evi_rag_tpu import cli as jcli
 from evi_rag_tpu_torch import cli as tcli
+from evi_rag_tpu_torch.data import native
 from evi_rag_tpu_torch.ops import score_kernels as sk
+from evi_rag_tpu_torch.testing import output_digest
 from evi_rag_tpu_torch.train.checkpoint import bundle_from_numpy
 from evi_rag_tpu_torch.utils import extras
 from evi_rag_tpu_torch.utils.config import ConfigError, load_config
@@ -140,6 +148,67 @@ def test_debug_profile_gives_the_outputs_of_the_plain_run(tmp_path):
         )
     assert out["debug"] == out["plain"]
     assert out["debug"]["train"]["epochs"] == 2
+
+
+@pytest.fixture(scope="module")
+def four_inputs(tmp_path_factory):
+    """What the four tasks below read, made once without extras: a
+    retriever checkpoint, both splits' agent stores, a GFlowNet checkpoint,
+    a raw RoG fixture and a tiny gte checkpoint."""
+    w = tmp_path_factory.mktemp("four")
+    common = ["experiment=quick_synthetic", *QUICK]
+    _port("train_retriever", [*common, f"retriever.train.ckpt_dir={w / 'ck'}"], w / "l0")
+    for split in ("train", "validation"):
+        _port("eval_retriever", [*common, f"retriever.ckpt={w / 'ck' / 'best'}", f"eval.splits=[{split}]",
+                                 "eval.g_agent.edge_top_k=50", f"eval.artifacts_dir={w / 'art'}"], w / f"l1{split}")
+    _port("train_gflownet", [*common, f"retriever.ckpt={w / 'ck' / 'best'}", f"gflownet.ckpt_dir={w / 'gfn'}",
+                             "gflownet.hidden_dim=auto", f"gflownet.g_agent_dir={w / 'art' / 'g_agent'}"], w / "l2")
+    return dict(w=w, common=common, raw=write_fixture("rog", w / "raw"), gte=write_tiny_gte(w / "gte"))
+
+
+def _four_task(task, inputs, out, exp):
+    """``task`` with ``exp`` (the debug profile or nothing) writing under
+    ``out``; returns what ``output_digest`` hashes."""
+    w, common = inputs["w"], [*inputs["common"], *exp]
+    if task == "build":
+        run = _port("build", ["build=webqsp", f"build.raw_root={inputs['raw']}", "build.encoder.kind=gte_jax",
+                              f"build.encoder.model_path={inputs['gte']}", "build.encoder.max_length=32",
+                              f"build.out_dir={out / 'built'}", *exp], out / "logs")
+        return out / "built", run / "metrics.json"
+    if task == "eval_retriever":
+        run = _port(task, [*common, f"retriever.ckpt={w / 'ck' / 'best'}", "eval.splits=[validation]",
+                           "eval.g_agent.edge_top_k=50", f"eval.artifacts_dir={out / 'art'}"], out / "logs")
+        return out / "art", run / "metrics.json"
+    if task == "eval_gflownet":
+        run = _port(task, [*common, f"gflownet.ckpt={w / 'gfn' / 'best'}", "eval.splits=[validation]",
+                           f"gflownet.g_agent_dir={w / 'art' / 'g_agent'}", f"eval.artifacts_dir={out / 'art'}"],
+                    out / "logs")
+        return out / "art", run / "metrics.json"
+    run = _port("sweep", [*common, "sweep=retriever_lr", "sweep.num_trials=2", "retriever.train.max_epochs=1"],
+                out / "logs")
+    return (run,)  # sweep.json, metrics.json and each trial's checkpoints and metrics
+
+
+@pytest.mark.parametrize("task", ["build", "eval_retriever", "eval_gflownet", "sweep"])
+def test_debug_profile_gives_the_outputs_of_the_plain_run_for(task, four_inputs, tmp_path, monkeypatch):
+    """The four tasks that the chain above leaves out, each under
+    ``experiment=debug`` and without extras: the same outputs."""
+    monkeypatch.setattr(native, "load_library", lambda **kw: None)  # the numpy BFS engine, as the data tests
+    digests = {}
+    for name, exp in (("debug", ["experiment=debug"]), ("plain", [])):
+        before = _modes()
+        digests[name] = output_digest(*_four_task(task, four_inputs, tmp_path / name, exp))
+        assert _modes() == before
+    assert digests["debug"] == digests["plain"]
+
+
+def test_nan_mode_skips_the_meta_device():
+    """A model made on the meta device before its weights load (the gte
+    encoder's ``from_state_dict``): its initialisers' outputs hold no
+    values, and the mode lets them pass."""
+    with extras.NanCheckMode(), torch.device("meta"):
+        emb = torch.nn.Embedding(8, 4)
+    assert emb.weight.is_meta
 
 
 def test_nan_learning_rate_raises_in_the_port(tmp_path):

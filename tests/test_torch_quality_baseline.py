@@ -28,7 +28,18 @@ CLI with the hash encoder at D = 64, then ``train_retriever
 experiment=webqsp_synth_hw dataset=webqsp_synth-sub`` at hidden 64 for 8
 epochs, the lr schedule's warmup and length cut in the same proportion to
 the run's steps, ``retriever.train.seed`` from ``--chain-seed``; it prints
-each package's per-epoch validation metrics.
+each package's per-epoch validation metrics.  ``--chain-init shared`` starts
+both CLIs from one set of parameters, made by JAX's init (the key and batch
+shapes JAX's own ``fit`` would use) and saved by each package's
+``save_checkpoint``, through ``retriever.train.resume_from``;
+``--chain-init port`` does the same with the port's init (its
+``init_parameters`` from the seed, as the port's ``fit`` draws it); the
+default, ``own``, lets each package draw its own init.  ``--chain-dtype float32``
+runs both at ``retriever.model.compute_dtype=float32`` (the config's is
+bfloat16)::
+
+    JAX_PLATFORMS=cpu python tests/test_torch_quality_baseline.py --chain --chain-seed 0 \
+        [--chain-init own|shared|port] [--chain-dtype bfloat16|float32] --out PATH
 """
 
 from __future__ import annotations
@@ -138,10 +149,47 @@ CHAIN_STEPS = 8 * CHAIN_COUNTS["train"] // 16
 CHAIN_SCHEDULE = (round(200 * CHAIN_STEPS / (8 * 177)), round(2500 * CHAIN_STEPS / (8 * 177)))
 
 
-def chain(work: pathlib.Path, seed: int) -> dict:
+def shared_init(work: pathlib.Path, common: list[str], seed: int, source: str = "jax") -> dict[str, str]:
+    """One package's initial parameters for the chain's model, saved by both
+    packages; returns {package: checkpoint dir}.  ``jax``: ``key(seed)``
+    over the shapes of a training batch, as JAX's ``fit`` draws them;
+    ``port``: the port's ``init_parameters`` from a generator seeded
+    ``seed``, as the port's ``fit`` draws them."""
+    import jax
+    import numpy as np
+    import torch
+
+    from evi_rag_tpu import cli as jcli
+    from evi_rag_tpu.data.feeder import collate_retriever, fixed_bucket_for
+    from evi_rag_tpu.train import checkpoint as jck
+    from evi_rag_tpu_torch import cli as tcli
+    from evi_rag_tpu_torch.models.retriever import init_parameters, params_to_numpy
+    from evi_rag_tpu_torch.train import checkpoint as tck
+
+    cfg = jcli.load_config(str(REPO / "configs"), "train_retriever", [a for a in common if "=" in a])
+    samples, ent, rel, q = jcli._load_split(cfg, "train")
+    model = jcli._retriever_model(cfg, inferred_dim=ent.shape[1])
+    if source == "jax":
+        per_shard = int(cfg["retriever"]["train"]["per_shard_batch"])
+        batch = collate_retriever(samples[:per_shard], entity_emb=ent, relation_emb=rel, question_emb=q,
+                                  bucket=fixed_bucket_for(samples, per_shard))
+        params = jax.tree.map(np.asarray, model.init(jax.random.key(seed), batch))
+    else:
+        port_model = tcli._retriever_model(cfg, inferred_dim=ent.shape[1])
+        init_parameters(port_model, torch.Generator().manual_seed(seed))
+        params = params_to_numpy(port_model)
+    meta = {"parity_meta": model.parity_meta()}
+    dirs = {"jax": str(work / "init_jax"), "port": str(work / "init_port")}
+    jck.save_checkpoint(dirs["jax"], params, meta=meta)
+    tck.save_checkpoint(dirs["port"], params, meta=meta)
+    return dirs
+
+
+def chain(work: pathlib.Path, seed: int, *, init: str = "own", dtype: str = "bfloat16") -> dict:
     """Both packages' ``train_retriever`` under ``experiment=webqsp_synth_hw``
-    on one JAX-built dataset, each with ``retriever.train.seed=seed``;
-    returns {package: per-epoch metrics}."""
+    on one JAX-built dataset, each with ``retriever.train.seed=seed``, from
+    its own init or from one shared init (``shared_init``), at
+    ``compute_dtype`` ``dtype``; returns {package: per-epoch metrics}."""
     import subprocess
 
     from evi_rag_tpu import cli as jcli
@@ -158,10 +206,13 @@ def chain(work: pathlib.Path, seed: int) -> dict:
               f"dataset.normalized_dir={root}", "retriever.model.hidden_dim=64", "retriever.train.max_epochs=8",
               "retriever.train.patience=8", f"retriever.train.optimizer.warmup_steps={warmup}",
               f"retriever.train.optimizer.total_steps={total}", f"retriever.train.seed={seed}",
-              "extras.print_config=false"]
+              f"retriever.model.compute_dtype={dtype}", "extras.print_config=false"]
+    starts = {} if init == "own" else shared_init(work, common, seed, source="jax" if init == "shared" else "port")
     out = {}
     for name, main_fn, extra in (("jax", jcli.main, []), ("port", tcli.main, ["device=cpu"])):
         logs = work / f"logs_{name}"
+        if name in starts:
+            extra = [*extra, f"retriever.train.resume_from={starts[name]}"]
         assert main_fn(["train_retriever", *common, *extra, f"retriever.train.ckpt_dir={work / f'ckpt_{name}'}",
                         f"paths.log_dir={logs}"]) in (0, None)
         (history,) = logs.glob("**/metrics.jsonl")
@@ -169,12 +220,12 @@ def chain(work: pathlib.Path, seed: int) -> dict:
     return out
 
 
-def chain_main(out_path: pathlib.Path, seed: int) -> None:
+def chain_main(out_path: pathlib.Path, seed: int, *, init: str = "own", dtype: str = "bfloat16") -> None:
     import tempfile
 
     keys = ("answer/reachability@100", "edge/recall@10", "edge/recall@100", "bridge/recall@10")
     with tempfile.TemporaryDirectory() as tmp:
-        runs = chain(pathlib.Path(tmp), seed)
+        runs = chain(pathlib.Path(tmp), seed, init=init, dtype=dtype)
     for name, history in runs.items():
         for epoch, row in enumerate(history):
             print(json.dumps({"package": name, "epoch": epoch, **{k: row.get(k) for k in keys},
@@ -183,7 +234,7 @@ def chain_main(out_path: pathlib.Path, seed: int) -> None:
         print(f"{name}: best answer/reachability@100 {max(r['answer/reachability@100'] for r in history):.4f}, "
               f"last edge/recall@100 {history[-1]['edge/recall@100']:.4f}")
     out_path.parent.mkdir(parents=True, exist_ok=True)
-    out_path.write_text(json.dumps(runs, indent=1))
+    out_path.write_text(json.dumps({"seed": seed, "init": init, "dtype": dtype, "runs": runs}, indent=1))
 
 
 def main() -> None:
@@ -194,9 +245,13 @@ def main() -> None:
     ap.add_argument("--out", default=str(REPO / "artifacts" / "quality" / "seed_spread.json"))
     ap.add_argument("--chain", action="store_true", help="the chain's retriever, both packages (see the docstring)")
     ap.add_argument("--chain-seed", type=int, default=0, help="retriever.train.seed of both --chain runs")
+    ap.add_argument("--chain-init", choices=("own", "shared", "port"), default="own",
+                    help="each package's own init, JAX's init for both, or the port's init for both (--chain)")
+    ap.add_argument("--chain-dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                    help="retriever.model.compute_dtype of both --chain runs")
     args = ap.parse_args()
     if args.chain:
-        chain_main(pathlib.Path(args.out), args.chain_seed)
+        chain_main(pathlib.Path(args.out), args.chain_seed, init=args.chain_init, dtype=args.chain_dtype)
         return
     scratch = pathlib.Path(args.out).parent
     scratch.mkdir(parents=True, exist_ok=True)
