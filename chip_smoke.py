@@ -178,7 +178,16 @@ debug. ``experiment=debug`` (``extras.deterministic`` and
    store, on the card and on the CPU at f32 (TF32 off), both with one set of
    rollout draws made on a CPU generator (``actor.make_rollout_draws``) and
    moved to the card: rollouts, hits and records equal, every metric within
-   1e-4, a differing action only at a near tie (8f's rule).
+   1e-4, a differing action only at a near tie (8f's rule).  12d (right
+   after 12c): ``fit_gflownet`` under the chain's GFlowNet protocol
+   (``experiment=webqsp_synth_hw``) at H = 64, f32, on the first 32 / 16
+   samples of 8a's train / validation stores (their tables' first 64
+   columns), 3 epochs across the BC hold / decay boundary, on the card and
+   on the CPU with one set of draws made on a CPU generator: per-step loss
+   and ``bc_weight`` at rtol 1e-3, per-epoch validation metrics (hits within
+   one graph's share), the same epochs and best epoch, best parameters
+   within ``2e-3 * sum(lr_t)`` (``tests/test_torch_gflownet_protocol.py``'s
+   bars for the port against JAX).
 
 ``python3 chip_smoke.py --quality`` runs only the WebQSP-scale chain of
 ``scripts/run_webqsp_synth_hw.sh`` on the card: ``testing.synthetic_rows``'
@@ -187,12 +196,16 @@ D = 1024 (``read_raw_rows`` + ``build_from_samples``), then the port's CLI
 under ``experiment=webqsp_synth_hw`` at the config's own epochs (14
 retriever and 20 GFlowNet epochs, patience 4 each): train_retriever,
 eval_retriever over both dataset variants, train_gflownet, eval_gflownet
-(25 rollouts), reasoner (oracle) and serve (k = 100, kernel 3).  Every
-stage must exit 0 and write its manifest; it prints each stage's wall
-seconds, the validation monitor of every training epoch with the best
-epoch (and the epoch where patience stopped a run), and round 4's metrics
-(``docs/RESULTS_synthetic.md``) beside the TPU run's values and the reduced
-CPU chain's JAX values (``CPU_CHAIN_JAX``, marked reduced-scale) (~30 min
+(25 rollouts), the same eval of the GFlowNet's initial parameters (the
+untrained floor: ``train_gflownet`` with 0 epochs keeps them), reasoner
+(oracle) and serve (k = 100, kernel 3).  Every stage must exit 0 and write
+its manifest; it prints each stage's wall seconds, the validation monitor
+of every training epoch with the best epoch (and the epoch where patience
+stopped a run), the BC weight and train loss of every GFlowNet epoch, the
+kept checkpoint's eval beside the floor's, and round 4's metrics
+(``docs/RESULTS_synthetic.md``; single-hop data, so beside the card's
+values, not a reference for them) and the reduced CPU chain's JAX values
+(``CPU_CHAIN_JAX``, marked reduced-scale) (~30 min
 on the H100; the dataset, checkpoints and artifacts go to
 ``chiprun_out/chip_smoke_quality/work/`` and are removed when the chain
 ends).
@@ -223,6 +236,7 @@ rest of the repository.  Weights and data are random, made from seeds.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -3125,7 +3139,12 @@ QUALITY_BAR = {
 EVAL_ATOL = 1e-4            # 12b / 12c: eval metrics, the card vs the CPU at f32
 EVAL_GFN_SAMPLES = 32       # 12c: the first agent samples of 8a's validation store (4 batches of 8)
 # --quality: round 4 of docs/RESULTS_synthetic.md (JAX, TPU v5e): quality
-# values to set the card's beside, never times.
+# values to set the card's beside, never times.  Round 4 ran the synthetic
+# generator of that round, which planted single-hop answers
+# (docs/RESULTS_synthetic.md:135-137); the chain here runs the multi-hop
+# preset of round 5 (scripts/make_synthetic_webqsp.py:13-23), on which
+# JAX's GFlowNet at scale was never measured (VERDICT.md:179-182).  So
+# these are values of another, single-hop task, not a reference for this one.
 ROUND4 = {
     "train_retriever answer/reachability@100 (validation)": 0.894,
     "eval edge/recall@10 train / validation / test": (0.553, 0.537, 0.539),
@@ -3151,6 +3170,9 @@ CPU_CHAIN_JAX = {
     "train_retriever answer/reachability@100 (validation)": 0.406,
     "eval edge/recall@10 train / validation / test": (None, 0.060, None),
     "eval edge/recall@100": (None, 0.447, None),
+    # ``--chain --chain-agent`` (PR 13): eval_gflownet of the kept checkpoint,
+    # 25 rollouts; its untrained floor reads 0.141 / 0.161.
+    "eval_gflownet answer_hit@25 validation / test": (0.177, 0.172),
 }
 
 
@@ -3439,6 +3461,28 @@ def eval_card_vs_cpu(result) -> dict:
     return dict(metrics=len(keys), max_metric_diff=max_diff, swaps=swaps, max_score_diff=max_score_diff, wall_s=wall)
 
 
+def draws_on_cpu(gen, make_draws, made: dict | None = None):
+    """A stand-in for ``actor.make_rollout_draws`` (``make_draws``) that draws
+    from the CPU generator ``gen``, whatever generator its caller passes,
+    and moves the draws to the batch's device; so runs on two devices draw
+    the same numbers in the same order.  The last draws also land in
+    ``made["draws"]``."""
+    import types
+
+    import torch
+
+    def cpu_draws(config, batch, **kw):
+        gb = batch.graph
+        stand_in = types.SimpleNamespace(graph=types.SimpleNamespace(
+            edge_batch=torch.empty(0), num_edges=gb.num_edges, num_graphs=gb.num_graphs))
+        kw["generator"] = gen
+        draws = {k: v.to(gb.edge_batch.device) for k, v in make_draws(config, stand_in, **kw).items()}
+        if made is not None:
+            made["draws"] = draws
+        return draws
+    return cpu_draws
+
+
 def phase_eval_gflownet_card_vs_cpu(smi: str, load_split, *, devices: tuple[str, str] = ("cuda", "cpu")) -> dict:
     """12c: ``eval_gflownet`` of 8b's checkpoint over the first
     ``EVAL_GFN_SAMPLES`` samples of 8a's validation store, through the CLI on
@@ -3454,7 +3498,6 @@ def phase_eval_gflownet_card_vs_cpu(smi: str, load_split, *, devices: tuple[str,
     (``realistic_loader``); ``devices`` names the two runs (a dry run on a
     machine without a card passes ``("cpu", "cpu")``)."""
     import itertools
-    import types
     from unittest import mock
 
     import numpy as np
@@ -3483,13 +3526,7 @@ def phase_eval_gflownet_card_vs_cpu(smi: str, load_split, *, devices: tuple[str,
         gen = torch.Generator().manual_seed(7)
         seen = actions.setdefault(run, [])
 
-        def cpu_draws(config, batch, **kw):
-            gb = batch.graph
-            stand_in = types.SimpleNamespace(graph=types.SimpleNamespace(
-                edge_batch=torch.empty(0), num_edges=gb.num_edges, num_graphs=gb.num_graphs))
-            kw["generator"] = gen
-            made["draws"] = {k: v.to(gb.edge_batch.device) for k, v in make_draws(config, stand_in, **kw).items()}
-            return made["draws"]
+        cpu_draws = draws_on_cpu(gen, make_draws, made)
 
         def recorded(**kw):
             ro = rollout(**kw)
@@ -3550,6 +3587,164 @@ def phase_eval_gflownet_card_vs_cpu(smi: str, load_split, *, devices: tuple[str,
         f"{hits}; task wall s card {wall['card']:.1f}, CPU {wall['cpu']:.1f}; {smi}")
     return dict(records=len(records["cpu"]), differing_records=differing, near_ties=near_ties,
                 metrics=len(keys), max_metric_diff=diff[worst], worst=worst, wall_s=wall)
+
+
+# 12d: ``fit_gflownet`` under the WebQSP chain's GFlowNet protocol
+# (``experiment=webqsp_synth_hw``) on 8a's stores, the card against the CPU.
+FIT_GFN_HIDDEN = 64          # the tables' first 64 columns and a random retriever bundle of that width
+FIT_GFN_SAMPLES = {"train": 32, "validation": 16}  # the first agent samples of 8a's stores: 4 + 2 batches of 8
+FIT_GFN_EPOCHS = 3
+FIT_GFN_TOTAL_STEPS = 10     # BC held over steps 0-1 (epoch 0), decayed over 2-7, 0 from step 8 (epoch 2)
+FIT_GFN_RTOL = 1e-3          # per-step loss and bc_weight; the non-hit validation metrics (atol 1e-6)
+
+
+@contextlib.contextmanager
+def recorded_gfn_steps(rows: list):
+    """``gflownet_trainer.make_gfn_train_step`` (as ``fit_gflownet`` calls
+    it) whose steps append their (loss, bc_weight) to ``rows``."""
+    from unittest import mock
+
+    from evi_rag_tpu_torch.train import gflownet_trainer as gt
+
+    make_step = gt.make_gfn_train_step
+
+    def recording(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def recorded(state, *args, **kwargs):
+            state, out = step(state, *args, **kwargs)
+            rows.append((float(out["loss"]), float(out["bc_weight"])))
+            return state, out
+        return recorded
+
+    with mock.patch.object(gt, "make_gfn_train_step", recording):
+        yield
+
+
+def phase_fit_gflownet_card_vs_cpu(smi: str, load_split, *, devices: tuple[str, str] = ("cuda", "cpu")) -> dict:
+    """12d: ``fit_gflownet`` at H = ``FIT_GFN_HIDDEN``, f32 (TF32 off), under
+    the chain's GFlowNet protocol (``experiment=webqsp_synth_hw``: SubTB +
+    BC 0.5 held 0.2 / decayed 0.6 of ``total_steps``, 4 rollouts, dropout 0.1,
+    AdamW 1e-4 clip 1.0) over ``FIT_GFN_EPOCHS`` epochs across the BC
+    hold / decay boundary, patience as many, on the first
+    ``FIT_GFN_SAMPLES`` of 8a's train and validation stores (their tables'
+    first columns, dense batches), once on each of ``devices``.  Every
+    rollout's draws (Gumbel uniforms, dropout masks) are made by
+    ``actor.make_rollout_draws`` on one CPU generator seeded 11 per run and
+    moved to the rollout's device, so both runs draw the same numbers in the
+    same order; the init is the port's, from a CPU generator.  Held, as
+    ``tests/test_torch_gflownet_protocol.py`` (b) holds the port to JAX:
+    the loss and ``bc_weight`` of every step at rtol ``FIT_GFN_RTOL``, each
+    epoch's ``answer_hit`` / ``answer_hit@k`` / ``answer_hit_ref@k`` within
+    one validation graph's share and its other metrics at rtol
+    ``FIT_GFN_RTOL``, the same epochs and best epoch, and the best
+    parameters leaf by leaf within ``2e-3 * sum(lr_t)``.  A dry run on a
+    machine without a card passes ``("cpu", "cpu")``."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from evi_rag_tpu_torch import cli
+    from evi_rag_tpu_torch.data.feeder import collate_agent, fixed_agent_bucket
+    from evi_rag_tpu_torch.eval.artifacts import load_agent_store
+    from evi_rag_tpu_torch.models.gflownet import actor
+    from evi_rag_tpu_torch.testing import random_bundle
+    from evi_rag_tpu_torch.train import gflownet_trainer as gt
+    from evi_rag_tpu_torch.train.checkpoint import flatten_tree
+    from evi_rag_tpu_torch.utils.config import load_config
+
+    h = FIT_GFN_HIDDEN
+    cfg = cli._gfn_cfg(load_config(str(ROOT / "configs"), "train_gflownet", [
+        "experiment=webqsp_synth_hw", f"gflownet.hidden_dim={h}", f"gflownet.total_steps={FIT_GFN_TOTAL_STEPS}",
+        f"gflownet.max_epochs={FIT_GFN_EPOCHS}", f"gflownet.patience={FIT_GFN_EPOCHS}"]), inferred_dim=h)
+    samples, kw = {}, {}
+    for split, n in FIT_GFN_SAMPLES.items():
+        samples[split] = load_agent_store(GFN_WORK / "art" / "g_agent" / split, drop_unreachable=split == "train")[:n]
+        if len(samples[split]) != n:
+            raise AssertionError(f"12d: {len(samples[split])} {split} agent samples, need {n}")
+        _, ent, rel, q = load_split(None, split)
+        kw[split] = dict(entity_emb=np.ascontiguousarray(ent[:, :h]), relation_emb=np.ascontiguousarray(rel[:, :h]),
+                         question_emb=np.ascontiguousarray(q[:, :h]))
+    bucket = fixed_agent_bucket(samples["train"] + samples["validation"], GFN_BATCH)
+
+    def batches(split, order):
+        return [collate_agent([samples[split][j] for j in order[i:i + GFN_BATCH]], bucket=bucket, **kw[split])
+                for i in range(0, len(order), GFN_BATCH)]
+
+    def train_batches(epoch):
+        order = np.arange(len(samples["train"]))
+        np.random.default_rng([0, epoch]).shuffle(order)  # the CLI's train feed
+        return batches("train", order)
+
+    val = batches("validation", np.arange(len(samples["validation"])))
+    bundle = random_bundle(h, seed=3)
+    make_draws = actor.make_rollout_draws
+    runs = {}
+    for run, dev in zip(("card", "cpu"), devices):
+        gen = torch.Generator().manual_seed(11)
+        rows: list = []
+
+        t0 = time.perf_counter()
+        with mock.patch.object(actor, "make_rollout_draws", draws_on_cpu(gen, make_draws)), recorded_gfn_steps(rows):
+            best, info = gt.fit_gflownet(cfg, bundle, train_batches, lambda: val, seed=0, device=dev)
+        runs[run] = dict(best={k: v.detach().cpu().numpy() for k, v in flatten_tree(best).items()}, rows=rows,
+                         history=info["history"], best_score=info["best_score"], wall_s=time.perf_counter() - t0)
+    card, cpu = runs["card"], runs["cpu"]
+    epochs = len(cpu["history"])
+    if [hh["epoch"] for hh in card["history"]] != [hh["epoch"] for hh in cpu["history"]] or epochs != FIT_GFN_EPOCHS:
+        raise AssertionError(f"12d: epochs card {len(card['history'])}, CPU {epochs}")
+    steps = len(cpu["rows"])
+    bc = [w for _, w in cpu["rows"]]
+    hold = round(FIT_GFN_TOTAL_STEPS * cfg.bc_hold_ratio)
+    decay_end = hold + round(FIT_GFN_TOTAL_STEPS * cfg.bc_decay_ratio)
+    per_epoch = steps // epochs
+    if len(card["rows"]) != steps or not (hold < per_epoch and decay_end < steps and bc[0] == cfg.bc_weight
+                                          and bc[decay_end] == 0.0 and 0.0 < bc[hold + 1] < cfg.bc_weight):
+        raise AssertionError(f"12d: {len(card['rows'])} / {steps} steps, bc_weight {bc}")
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    loss_rel = max(rel(a[0], b[0]) for a, b in zip(card["rows"], cpu["rows"]))
+    bc_rel = max(rel(a[1], b[1]) for a, b in zip(card["rows"], cpu["rows"]))
+    if loss_rel > FIT_GFN_RTOL or bc_rel > FIT_GFN_RTOL:
+        raise AssertionError(f"12d: per-step loss rel {loss_rel:.3e}, bc_weight rel {bc_rel:.3e} > {FIT_GFN_RTOL}")
+    share = 1.0 / FIT_GFN_SAMPLES["validation"]
+    hit_diff = other_ratio = 0.0
+    for hc, hp in zip(card["history"], cpu["history"]):
+        if hc["val"].keys() != hp["val"].keys():
+            raise AssertionError(f"12d epoch {hp['epoch']}: the card and the CPU report other metrics")
+        for k, v in hp["val"].items():
+            if k == "answer_hit" or k.startswith(("answer_hit@", "answer_hit_ref@")):
+                hit_diff = max(hit_diff, abs(hc["val"][k] - v))
+            else:
+                other_ratio = max(other_ratio, abs(hc["val"][k] - v) / (1e-6 + FIT_GFN_RTOL * abs(v)))
+    if hit_diff > share + 1e-9 or other_ratio > 1.0:
+        raise AssertionError(f"12d: hit metrics within {hit_diff:.4f} (share {share:.4f}), other metrics "
+                             f"{other_ratio:.3f} of their bar")
+    monitor = {r: [hh["val"]["answer_hit"] for hh in runs[r]["history"]] for r in runs}
+    best_epoch = {r: max(range(epochs), key=lambda i, m=monitor[r]: (m[i], -i)) for r in runs}
+    if best_epoch["card"] != best_epoch["cpu"]:
+        raise AssertionError(f"12d: best epoch card {best_epoch['card']}, CPU {best_epoch['cpu']} ({monitor})")
+    bound = 2e-3 * cfg.optimizer.learning_rate * (best_epoch["cpu"] + 1) * per_epoch
+    param_diff = max(float(np.abs(card["best"][k] - v).max()) for k, v in cpu["best"].items())
+    if card["best"].keys() != cpu["best"].keys() or param_diff > bound:
+        raise AssertionError(f"12d: best parameters differ by {param_diff:.3e} > {bound:.3e}")
+    log(f"[12d fit_gflownet] {FIT_GFN_SAMPLES} agent samples of 8a's stores at H = {h}, f32 (TF32 off), "
+        f"experiment=webqsp_synth_hw's GFlowNet protocol, total_steps {FIT_GFN_TOTAL_STEPS} (BC held to step "
+        f"{hold - 1}, 0 from step {decay_end}), {epochs} epochs of {per_epoch} steps, card vs CPU with one set of "
+        f"draws: per-step loss within {loss_rel:.3e} and bc_weight within {bc_rel:.3e} relative (tol "
+        f"{FIT_GFN_RTOL}); hit metrics within {hit_diff:.4f} (share {share:.4f}), other metrics at {other_ratio:.3f} "
+        f"of their bar; monitor answer_hit card {[round(x, 4) for x in monitor['card']]} CPU "
+        f"{[round(x, 4) for x in monitor['cpu']]}, best epoch {best_epoch['cpu']} on both; best parameters within "
+        f"{param_diff:.3e} (bound {bound:.3e}); bc_weight by step {[round(w, 4) for w in bc]}; loss by step "
+        f"{[round(lo, 4) for lo, _ in cpu['rows']]}; fit wall s card {card['wall_s']:.1f}, CPU {cpu['wall_s']:.1f}; "
+        f"{smi}")
+    return dict(steps=steps, epochs=epochs, loss_rel=loss_rel, bc_rel=bc_rel, hit_diff=hit_diff, share=share,
+                other_ratio=other_ratio, monitor=monitor, best_epoch=best_epoch["cpu"], param_diff=param_diff,
+                param_bound=bound, bc_weight=bc, losses=[lo for lo, _ in cpu["rows"]],
+                wall_s={r: runs[r]["wall_s"] for r in runs})
 
 
 def phase_quality_chain(smi: str, *, counts: dict | None = None, dim: int = D, device: str = "cuda",
@@ -3630,6 +3825,14 @@ def quality_chain(smi: str, counts, dim: int, device: str, extra: list) -> dict:
         ("eval_gflownet", ["eval_gflownet", sub, f"gflownet.ckpt={ckpt / 'gflownet' / 'best'}",
                            f"gflownet.g_agent_dir={art / 'webqsp_synth-sub' / 'g_agent'}",
                            "eval.splits=[validation, test]", f"eval.artifacts_dir={art / 'webqsp_synth-sub'}"]),
+        # The untrained floor: train_gflownet with 0 epochs keeps the initial
+        # parameters, and the same eval of them.
+        ("train_gflownet:init", ["train_gflownet", sub, f"retriever.ckpt={ckpt / 'retriever' / 'best'}",
+                                 f"gflownet.g_agent_dir={art / 'webqsp_synth-sub' / 'g_agent'}",
+                                 "gflownet.max_epochs=0", f"gflownet.ckpt_dir={ckpt / 'gflownet_init'}"]),
+        ("eval_gflownet:init", ["eval_gflownet", sub, f"gflownet.ckpt={ckpt / 'gflownet_init' / 'best'}",
+                                f"gflownet.g_agent_dir={art / 'webqsp_synth-sub' / 'g_agent'}",
+                                "eval.splits=[validation, test]", f"eval.artifacts_dir={art / 'init'}"]),
         ("reasoner", ["reasoner", sub, f"gflownet.g_agent_dir={art / 'webqsp_synth-sub' / 'g_agent'}",
                       f"eval.artifacts_dir={art / 'webqsp_synth-sub'}"]),
         ("serve", ["serve", "dataset=webqsp_synth", f"retriever.ckpt={ckpt / 'retriever' / 'best'}",
@@ -3637,6 +3840,7 @@ def quality_chain(smi: str, counts, dim: int, device: str, extra: list) -> dict:
     ]
     metrics: dict[str, dict] = {}
     epochs: dict[str, dict] = {}
+    gfn_steps: list = []  # (loss, bc_weight) of every train_gflownet step
     launches = 0
     with contextlib.ExitStack() as stack:
         for patch in patches:
@@ -3645,7 +3849,8 @@ def quality_chain(smi: str, counts, dim: int, device: str, extra: list) -> dict:
             logs = QUALITY_DIR / "logs" / name.replace(":", "_")
             reset_launches()
             t0 = time.perf_counter()
-            rc = cli.main([argv[0], *common, *argv[1:], *extra, f"paths.log_dir={logs}"])
+            with recorded_gfn_steps(gfn_steps) if name == "train_gflownet" else contextlib.nullcontext():
+                rc = cli.main([argv[0], *common, *argv[1:], *extra, f"paths.log_dir={logs}"])
             stage_s[name] = time.perf_counter() - t0
             if rc != 0:
                 raise AssertionError(f"quality {name}: exit {rc}")
@@ -3653,7 +3858,7 @@ def quality_chain(smi: str, counts, dim: int, device: str, extra: list) -> dict:
             if name == "serve":
                 launches = sk.per_question_topk.launches
             log(f"[quality {name}] exit 0 in {stage_s[name]:.1f} s")
-            if name.startswith("train_"):
+            if name in ("train_retriever", "train_gflownet"):
                 epochs[name] = epoch_monitor(logs, name, extra)
     manifests = {
         "train_retriever": ckpt / "retriever" / "best" / "meta.json",
@@ -3661,24 +3866,49 @@ def quality_chain(smi: str, counts, dim: int, device: str, extra: list) -> dict:
         "eval_retriever:webqsp_synth-sub": art / "webqsp_synth-sub" / "g_agent" / "train" / "manifest.json",
         "train_gflownet": ckpt / "gflownet" / "best" / "meta.json",
         "eval_gflownet": art / "webqsp_synth-sub" / "eval_gflownet" / "test.manifest.json",
+        "eval_gflownet:init": art / "init" / "eval_gflownet" / "test.manifest.json",
     }
     missing = [n for n, p in manifests.items() if not p.exists()]
     serve_runs = sorted((QUALITY_DIR / "logs" / "serve").glob("**/test.manifest.json"))
     if missing or not serve_runs or (device != "cpu" and launches <= 0):
         raise AssertionError(f"quality: manifests missing {missing}, serve manifests {serve_runs}, kernel-3 "
                              f"launches {launches}")
+    floor = gflownet_floor(epochs["train_gflownet"], gfn_steps, metrics["eval_gflownet"], metrics["eval_gflownet:init"])
     table = chain_table(metrics)
     for row, (got, tpu, cpu) in table.items():
-        log(f"[quality table] {row}: card {got} | TPU v5e round 4 {tpu} | reduced CPU chain, JAX "
+        log(f"[quality table] {row}: card {got} | TPU v5e round 4, single-hop data {tpu} | reduced CPU chain, JAX "
             f"{'-' if cpu is None else cpu} (reduced scale)")
     sv = metrics["serve"]
     log(f"[quality] stage wall s {json.dumps({k: round(v, 1) for k, v in stage_s.items()})}; serve kernel-3 "
         f"launches {launches}, q/s validation {sv.get('validation/queries_per_s')} test "
         f"{sv.get('test/queries_per_s')}; {smi}")
-    finite = [v for m in metrics.values() for v in m.values() if isinstance(v, float)]
+    # train_gflownet:init reports the best score of no epoch (-inf).
+    finite = [v for name, m in metrics.items() if name != "train_gflownet:init" for v in m.values()
+              if isinstance(v, float)]
     if not np.isfinite(finite).all():
         raise AssertionError("quality: a stage reported a non-finite metric")
-    return dict(stage_s=stage_s, serve_launches=launches, table=table, metrics=metrics, sizes=sizes, epochs=epochs)
+    return dict(stage_s=stage_s, serve_launches=launches, table=table, metrics=metrics, sizes=sizes, epochs=epochs,
+                gflownet=floor)
+
+
+def gflownet_floor(monitor: dict, steps: list, trained: dict, init: dict) -> dict:
+    """Print the GFlowNet stage by epoch (the monitor, the BC weight and
+    loss of the epoch's last step, the logged train loss) and
+    ``eval_gflownet`` of the kept checkpoint beside the same eval of the
+    initial parameters (the untrained floor)."""
+    epochs = monitor["epochs"]
+    per_epoch = len(steps) // max(epochs, 1)
+    last = [steps[(e + 1) * per_epoch - 1] for e in range(epochs)]
+    log(f"[quality train_gflownet] by epoch ({per_epoch} steps each): monitor {monitor['monitor']} "
+        f"{', '.join(f'{v:.4f}' for v in monitor['values'])}; bc_weight at the epoch's last step "
+        f"{', '.join(f'{w:.4f}' for _, w in last)}; train loss (the epoch's last step) "
+        f"{', '.join(f'{lo:.4f}' for lo in monitor['train_loss'])}")
+    keys = [f"{s}/answer_hit{k}" for s in ("validation", "test") for k in ("", "@1", "@10", "@25")]
+    rows = {k: (trained.get(k), init.get(k)) for k in keys}
+    log("[quality eval_gflownet] kept checkpoint | untrained floor (the initial parameters, the same eval): "
+        + "; ".join(f"{k} {a:.4f} | {b:.4f}" for k, (a, b) in rows.items() if a is not None and b is not None))
+    return dict(bc_weight_by_epoch=[w for _, w in last], loss_by_step=[lo for lo, _ in steps],
+                bc_weight_by_step=[w for _, w in steps], eval_trained_vs_init=rows)
 
 
 def epoch_monitor(logs: pathlib.Path, stage: str, extra: list) -> dict:
@@ -3696,7 +3926,8 @@ def epoch_monitor(logs: pathlib.Path, stage: str, extra: list) -> dict:
     rows = [json.loads(ln) for ln in history.read_text().splitlines()]
     values = [r.get(key) for r in rows]
     best = max(range(len(values)), key=lambda i: values[i])
-    out = dict(monitor=key, values=values, best_epoch=best, epochs=len(values),
+    out = dict(monitor=key, values=values, train_loss=[r.get("train_loss") for r in rows], best_epoch=best,
+               epochs=len(values),
                max_epochs=int(section["max_epochs"]), patience=int(section["patience"]),
                stopped_early=len(values) < int(section["max_epochs"]))
     log(f"[quality {stage}] validation {key} by epoch: {', '.join(f'{v:.4f}' for v in values)}; best epoch {best} "
@@ -3767,7 +3998,9 @@ def main() -> int:
         chain["wall_s"] = time.perf_counter() - t_all
         (OUT_DIR / "chip_smoke_quality.json").write_text(json.dumps(chain, indent=2, default=str))
         log(f"[done] wall {chain['wall_s']:.1f} s; details in chiprun_out/chip_smoke_quality.json")
-        log(json.dumps({"quality": {k: chain[k] for k in ("stage_s", "serve_launches", "table", "sizes", "epochs")}}))
+        gfn = {k: v for k, v in chain["gflownet"].items() if not k.endswith("_by_step")}
+        log(json.dumps({"quality": {**{k: chain[k] for k in ("stage_s", "serve_launches", "table", "sizes", "epochs")},
+                                    "gflownet": gfn}}))
         log(smi)
         log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
@@ -3786,6 +4019,7 @@ def main() -> int:
     try:
         debug = phase_debug(smi, train["retriever_ckpt"])
         eval_gfn = phase_eval_gflownet_card_vs_cpu(smi, load_split)
+        fit_gfn = phase_fit_gflownet_card_vs_cpu(smi, load_split)
     finally:
         shutil.rmtree(GFN_WORK)  # phase 8's ~100 MB of stores, records and checkpoints
     native_bfs = phase_native()
@@ -3847,7 +4081,8 @@ def main() -> int:
         })
     details = dict(nvidia_smi=smi, build_s=build_s, kernel=rows, serve=serve, cli=cli_metrics,
                    pooled=pooled, train=train, gflownet=gflownet, debug=debug, native_bfs=native_bfs, build=build, sweep=sweep,
-                   multi=multi, route=route, quality=quality, eval_gflownet_card_vs_cpu=eval_gfn, kernels=kernels,
+                   multi=multi, route=route, quality=quality, eval_gflownet_card_vs_cpu=eval_gfn,
+                   fit_gflownet_card_vs_cpu=fit_gfn, kernels=kernels,
                    wall_s=time.perf_counter() - t_all)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(details, indent=2, default=str))
     log(f"[done] wall {details['wall_s']:.1f} s; details in chiprun_out/chip_smoke.json")

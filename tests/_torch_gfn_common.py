@@ -146,6 +146,56 @@ def rollout_draws(keys, jb, steps, hidden, *, dropout=0.0, policy_params=None, s
     return {k: torch.from_numpy(np.concatenate(v, axis=1)) for k, v in parts.items() if v}
 
 
+_KEY_CHAINS: dict = {}
+
+
+def jax_step_keys(stream_seed, step, rollouts):
+    """The rollout keys of JAX's GFlowNet trainer at ``step`` (0-based) of
+    the stream ``key(stream_seed)`` (``fit_gflownet``'s ``key(seed + 1)``):
+    the state's key split once a step, then ``split(sub, rollouts)``."""
+    chain = _KEY_CHAINS.setdefault(stream_seed, [jax.random.key(stream_seed)])
+    while len(chain) <= step:
+        chain.append(jax.random.split(chain[-1])[0])
+    return list(jax.random.split(jax.random.split(chain[step])[1], rollouts))
+
+
+def jax_eval_keys(eval_seed, batch, rollouts):
+    """The rollout keys of batch ``batch`` of a JAX GFlowNet eval from
+    ``key(eval_seed)`` (``evaluate_gflownet``'s ``key(1000 + epoch)``,
+    ``eval_gflownet``'s ``key(7)``): ``split(fold_in(key, batch), rollouts)``."""
+    return list(jax.random.split(jax.random.fold_in(jax.random.key(eval_seed), batch), rollouts))
+
+
+def replay_jax_draws(policy_params, graphs, log=None):
+    """A stand-in for the port's ``actor.make_rollout_draws`` that hands out
+    JAX's draws: for the ``n``-th draw of a generator seeded ``s``, the
+    keys of JAX's trainer at step ``n`` of ``key(s)`` in train mode
+    (``jax_step_keys``), of batch ``n`` of an eval from ``key(s)`` otherwise
+    (``jax_eval_keys``), as ``rollout_draws`` lays them out.  So a port that
+    seeds or advances its generators otherwise than JAX keys its draws gets
+    other draws.  ``policy_params`` (JAX's) give the dropout recorder its
+    shapes; ``graphs`` is a batch's bucket (its rollout count divides the
+    replicated batch); ``log`` collects (seed, n, train) of every call."""
+    counts, kept = {}, []  # ``kept`` holds every generator alive, so that ids stay unique
+
+    def make_rollout_draws(config, batch, *, hidden_dim, dropout, train, sample, generator=None):
+        kept.append(generator)
+        n = counts.get(id(generator), 0)
+        counts[id(generator)] = n + 1
+        s = generator.initial_seed()
+        if log is not None:
+            log.append((s, n, train))
+        gb = batch.graph
+        r = gb.num_graphs // graphs
+        keys = jax_step_keys(s, n, r) if train else jax_eval_keys(s, n, r)
+        shape = types.SimpleNamespace(graph=types.SimpleNamespace(num_edges=gb.num_edges // r,
+                                                                  num_graphs=gb.num_graphs // r))
+        draws = rollout_draws(keys, shape, config.num_steps, hidden_dim, dropout=dropout if train else 0.0,
+                              policy_params=policy_params, sample=sample)
+        return {k: v.to(gb.edge_batch.device) for k, v in draws.items()}
+    return make_rollout_draws
+
+
 def flat(tree, prefix=""):
     out = {}
     for k, v in tree.items():
@@ -156,3 +206,20 @@ def flat(tree, prefix=""):
 
 def to_np(t):
     return t.detach().float().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def recording_train_step(lib, rows: list):
+    """``lib.make_gfn_train_step`` (either package's trainer module) whose
+    steps append their (loss, bc_weight) to ``rows``; patch it in where
+    ``fit_gflownet`` looks it up."""
+    real = lib.make_gfn_train_step
+
+    def make_gfn_train_step(*a, **kw):
+        step = real(*a, **kw)
+
+        def recorded(state, *args, **kwargs):
+            state, out = step(state, *args, **kwargs)
+            rows.append((float(out["loss"]), float(out["bc_weight"])))
+            return state, out
+        return recorded
+    return make_gfn_train_step
