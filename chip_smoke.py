@@ -95,7 +95,9 @@ debug. ``experiment=debug`` (``extras.deterministic`` and
    without extras, with each mode alone and twice under the profile, whose
    two checkpoint digests must be equal; step ms of each.  (b)
    ``train_gflownet`` at hidden 1024 on 8a's stores, 1 epoch, without extras
-   and twice under the profile (equal digests); step ms.  (c) ``serve`` of
+   and twice under the profile (equal digests); step ms.  The eight runs of
+   (a) and (b) go in two waves of four (``DEBUG_AB_WAVES``), so their step ms
+   are taken under that contention.  (c) ``serve`` of
    (a)'s checkpoint on phase 4's split under the profile and without it:
    ids and scores bit for bit equal, through kernel 3.  (d) under both
    modes, kernels 1 and 2 launched twice on phase 6's inputs (16 queries)
@@ -103,11 +105,11 @@ debug. ``experiment=debug`` (``extras.deterministic`` and
    in a backward op raises.  (e) a NaN learning rate raises
    ``FloatingPointError`` in the first step (non-zero exit, no
    ``ckpt/best``); a NaN row of W1 in the checkpoint raises it from kernel
-   3's wrapper, which names the kernel.  (d) and (e) run at once.  (f)
+   3's wrapper, which names the kernel.  (c), (d) and (e) run at once.  (f)
    ``build`` (9c's gte-large geometry with random weights on a few dozen
    texts, so that SDPA runs), ``eval_retriever`` (8a's checkpoint and
    validation split), ``eval_gflownet`` (8b's checkpoint and validation
-   store) and ``sweep`` (2 trials of 1 epoch at production width), each twice
+   store) and ``sweep`` (1 trial of 1 epoch at production width), each twice
    under the profile and once without extras, in two waves of fresh
    processes (``FOUR_TASK_WAVES``): the outputs' digests (``testing.output_digest``: the stores and embeddings,
    the records, checkpoints and ``metrics.json`` without run times) equal.
@@ -118,15 +120,16 @@ debug. ``experiment=debug`` (``extras.deterministic`` and
    at its published geometry (24 layers, hidden 1024, 16 heads, gated MLP
    4096, vocab 30,528) with seeded random weights, card (f32, TF32 off)
    against CPU on 8 ragged rows of 64 tokens: pooled min cosine >= 0.99999
-   and max abs error <= 1e-4 x max |x|.  9c: the WebQSP preset's 246-question
-   validation split (``testing.synthetic_rows``, seed 0) through the build's
+   and max abs error <= 1e-4 x max |x|.  9c: the WebQSP preset's validation
+   split cut to ``BUILD_QUESTIONS`` (96) questions (``testing.synthetic_rows``, seed 0) through the build's
    passes 1-4 with that encoder (``testing.HashTokenizer``, 64 tokens, batch
    256) and the native engine: texts, real and padded tokens, encode s,
    texts/s, TFLOP/s as counted and the share of the f32 bound, one batch
    timed alone, the graph pass s and the engine that ran, bytes, peak
    memory.  9d: ``seed_stats`` through the CLI on the built split, and
    ``serve`` of it with phase 7a's retriever through kernel 3, held to the
-   plain-version serve by phase 4's rule (q/s, bucket shapes);
+   plain-version serve by phase 4's rule (q/s, bucket shapes; the widest
+   bucket must be M = 8,192, as the edge cap of 6,144 gives);
 10. ``sweep`` at full width: ``sweep=retriever_lr``, ``retriever=production``,
    3 trials of 1 epoch at a constant lr on phase 7a's train split and phase
    4's validation split: every trial ``ok``, the best the trial with the
@@ -187,7 +190,18 @@ debug. ``experiment=debug`` (``extras.deterministic`` and
    and ``bc_weight`` at rtol 1e-3, per-epoch validation metrics (hits within
    one graph's share), the same epochs and best epoch, best parameters
    within ``2e-3 * sum(lr_t)`` (``tests/test_torch_gflownet_protocol.py``'s
-   bars for the port against JAX).
+   bars for the port against JAX);
+13. ``python -m evi_rag_tpu_torch.bench`` (the port of ``bench.py``: every
+   section at the reference's sizes) in a fresh process on the card: exit 0,
+   its last line with this card's name and power limit, every measured key
+   present and finite, the batch-128 latency and ``mfu_fused_131k`` within
+   10% of phase 6's kernel-2 ms and MFU, kernel 2 launched once per headline
+   pass, kernel 3 on the realistic serve point, kernel 2's top-k at the
+   headline, the batch-8 point and the 1M point held to its plain version,
+   and both serve points' cold passes held to the plain-version serve
+   (phase 4's rule); its details in
+   ``chiprun_out/bench_torch_details.json``.  Each phase's wall seconds are
+   printed as ``[wall]`` lines.
 
 ``python3 chip_smoke.py --quality`` runs only the WebQSP-scale chain of
 ``scripts/run_webqsp_synth_hw.sh`` on the card: ``testing.synthetic_rows``'
@@ -221,11 +235,12 @@ is also timed with one cluster per (question, tile) against its persistent
 clusters (and must give bitwise the same output).  The switched builds
 compute wrong scores; they only show where the time goes.
 
-``python3 chip_smoke.py --crossover`` runs only the card's counterpart of
-``scripts/measure_fused_crossover.py``: ``serve_window`` through kernel 3
-and through the plain bf16 scorer on the same feeds (two buckets of 16
-questions, D = 1024) at m_pad 8 .. 4096, wall ms per call, and the smallest
-m_pad from which the kernel is faster at every larger width
+``python3 chip_smoke.py --crossover`` runs only the port of
+``scripts/measure_fused_crossover.py``
+(``evi_rag_tpu_torch/scripts/measure_fused_crossover.py``): ``serve_window``
+through kernel 3 and through the plain bf16 scorer on the same feeds (two
+buckets of 16 questions, D = 1024) at m_pad 8 .. 4096, wall ms per call, and
+the smallest m_pad from which the kernel is faster at every larger width
 (``serve.fused_threshold`` stays at the JAX package's 256).
 
 Then a line ``{"kernels": [...]}``, the nvidia-smi line, and as the last line
@@ -266,8 +281,7 @@ REPORT_M = 2048           # realistic serve buckets: median ~1.2k edges -> m_pad
 # rounding of an A-operand element now and then.  Scores are O(1).
 ATOL = 5e-3
 TIE_TOL = 5e-3             # ids may swap only where the plain scores are this close
-MAX_SWAPPED = 8            # questions of the serve whose top-k may differ by such swaps
-FULL_RANK = 4096           # >= the largest bucket of the realistic split (max 3182 edges)
+FULL_RANK = 4096           # >= the largest bucket of the realistic split (max 3182 edges): full_ranking's width
 POOLED_M = 131072          # bench.py's headline pooled query
 POOLED_B = 128
 POOLED_CHECK = 8           # queries held to the plain versions' full score rows
@@ -290,7 +304,8 @@ GTE_LEN, GTE_BATCH = 64, 256
 GTE_FLOP_PER_TOKEN = 24 * (2 * 16_777_216 + 4 * GTE_LEN * 1024)
 GTE_COS_MIN = 0.99999      # 9b: card vs CPU, pooled f32 outputs
 GTE_REL_ERR = 1e-4         # 9b: max abs error <= this x max |x|
-BUILD_QUESTIONS = 246      # the WebQSP preset's validation split
+BUILD_QUESTIONS = 96       # of the WebQSP preset's 246-question validation split (cut for the script's time;
+                           # 9d requires that its widest bucket is still BUILT_RANK)
 BUILD_DIR = OUT_DIR / "chip_smoke_build"  # phase 9: logs stay
 BUILD_WORK = BUILD_DIR / "work"           # the built dataset, removed when phase 9 ends
 BUILT_RANK = 8192          # >= the largest bucket of the built split (edge cap 6144)
@@ -298,47 +313,6 @@ BUILT_RANK = 8192          # >= the largest bucket of the built split (edge cap 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def make_bundle(dim: int, hidden: int, struct_dim: int, seed: int = 0):
-    """Random retriever feature bundle with the production geometry."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-
-    def dense(i, o):
-        return {
-            "kernel": (rng.normal(size=(i, o)) / np.sqrt(i)).astype(np.float32),
-            "bias": np.zeros(o, np.float32),
-        }
-
-    def ln(d):
-        return {"scale": np.ones(d, np.float32), "bias": np.zeros(d, np.float32)}
-
-    feats = {
-        "entity_proj": {"proj": dense(dim, dim)},
-        "relation_proj": {"proj": dense(dim, dim)},
-        "query_proj": {"proj": dense(dim, dim)},
-        "non_text_entity_emb": np.zeros(dim, np.float32),
-        "q_gate": dense(dim, dim),
-        "q_bias": dense(dim, dim),
-        "struct_proj": dense(struct_dim, dim),
-        "struct_norm": ln(dim),
-        "struct_gate": dense(dim, 1),
-        "state_net_0": dense(3 * dim + 1, hidden),
-        "state_norm": ln(hidden),
-        "state_net_1": dense(hidden, hidden),
-        "score_head": dense(hidden, 1),
-    }
-    parity = {"use_topic_pe": 1, "num_topics": 2, "dde_rounds": 2, "dde_reverse_rounds": 2}
-    return {"features": feats, "parity_meta": parity}
-
-
-def bf16_ulp(x: float) -> float:
-    """The spacing of bf16 values at |x| (8 significant bits)."""
-    import math
-
-    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x != 0 else 0.0
 
 
 def reset_launches() -> None:
@@ -542,9 +516,12 @@ def phase_kernel(bundle_np, seed: int = 5):
 
 
 def phase_serve(bundle_np, num_questions: int):
+    import functools
+
     import numpy as np
     import torch
 
+    from evi_rag_tpu_torch.bench import CHECK_MAX_SWAPPED, full_ranking, hold_serve_to_plain
     from evi_rag_tpu_torch.data.synthetic import make_synthetic_dataset
     from evi_rag_tpu_torch.ops import score_kernels as sk
     from evi_rag_tpu_torch.serving import project_tables, serve_recall_at_k, serve_split
@@ -590,8 +567,8 @@ def phase_serve(bundle_np, num_questions: int):
     log(f"[4 serve] q/s per pass {qps} median {qps[1]}; stats {stats}")
 
     _, plain_stats = serve_split(bundle, ds.samples, fused_fn=sk.per_question_topk_reference, **kw)
-    full, _ = serve_split(bundle, ds.samples, fused_fn=plain_full_ranking, **kw)
-    plain, swapped, max_err = check_against_plain(ds.samples, results, full)
+    full, _ = serve_split(bundle, ds.samples, fused_fn=functools.partial(full_ranking, width=FULL_RANK), **kw)
+    plain, swapped, max_err = hold_serve_to_plain(ds.samples, results, full)
     rec_k = serve_recall_at_k(ds.samples, results, [10, 100])
     rec_p = serve_recall_at_k(ds.samples, plain, [10, 100])
     slack = swapped / num_questions  # a swap moves one question's recall by at most 1
@@ -599,7 +576,7 @@ def phase_serve(bundle_np, num_questions: int):
         if abs(rec_k[key] - rec_p[key]) > slack:
             raise AssertionError(f"{key}: kernel {rec_k[key]} vs plain {rec_p[key]} (slack {slack})")
     log(f"[4 serve] vs plain-version serve: max score error {max_err:.3e} (tol {ATOL}); "
-        f"questions with a near-tie swap {swapped}/{num_questions} (at most {MAX_SWAPPED}); "
+        f"questions with a near-tie swap {swapped}/{num_questions} (at most {CHECK_MAX_SWAPPED}); "
         f"recall kernel {rec_k} plain {rec_p}; plain-version serve q/s {plain_stats.queries_per_s}")
     out = dict(launches=launches, group_launches=stats.num_groups, warmup_launches=launches - stats.num_groups,
                qps=qps, stats=stats.__dict__, recall=rec_k, recall_plain=rec_p, max_abs_err=max_err,
@@ -608,63 +585,6 @@ def phase_serve(bundle_np, num_questions: int):
     out["profile"] = profile_serve(bundle, ds, kw)
     out["_ctx"] = (bundle, ds, kw, results, full)  # phase 11d serves the same split over meshes
     return out
-
-
-def plain_full_ranking(bundle, q_emb, head_repr, *args, k, weights, width: int = FULL_RANK):
-    """The plain version, ranking every candidate instead of the top k
-    (padded with -inf to ``width`` slots, so that every bucket shape returns
-    the same width); ``serve_split`` then keeps each question's whole
-    ranking with its scores."""
-    import torch.nn.functional as F
-
-    from evi_rag_tpu_torch.ops import score_kernels as sk
-
-    m = head_repr.shape[1]
-    if m > width:
-        raise ValueError(f"bucket M={m} > width {width}")
-    vals, ids = sk.per_question_topk_reference(bundle, q_emb, head_repr, *args, k=m, weights=weights)
-    return (F.pad(vals, (0, width - m), value=float("-inf")),
-            F.pad(ids, (0, width - m), value=-1))
-
-
-def check_against_plain(samples, results, full):
-    """Hold the kernel serve's top-k to the plain-version serve's full
-    rankings: ids valid and distinct, scores within ATOL of the plain score
-    of the same edge, and every id in one top-k but not the other within
-    TIE_TOL of the plain k-th score.  Both serves round their scores to
-    bf16, so each bound is at least one bf16 ulp of the plain score.  At
-    most MAX_SWAPPED questions may differ.  Returns (the plain serve cut to its top k, swapped questions,
-    max score error)."""
-    by_id = {r.sample_id: r for r in full}
-    edges = {s.sample_id: s.edge_index.shape[1] for s in samples}
-    plain, swapped, max_err = [], 0, 0.0
-    for r in results:
-        f = by_id[r.sample_id]
-        if f.edge_ids.size != edges[r.sample_id]:
-            raise AssertionError(f"{r.sample_id}: plain ranking has {f.edge_ids.size} of "
-                                 f"{edges[r.sample_id]} edges")
-        n = r.edge_ids.size
-        plain.append(dataclasses.replace(f, edge_ids=f.edge_ids[:n], scores=f.scores[:n]))
-        if n == 0:
-            continue
-        score_of = dict(zip(f.edge_ids.tolist(), f.scores.tolist()))
-        got = r.edge_ids.tolist()
-        if len(set(got)) != n or any(e not in score_of for e in got):
-            raise AssertionError(f"{r.sample_id}: ids out of range or repeated")
-        for e, v in zip(got, r.scores.tolist()):
-            err = abs(score_of[e] - v)
-            if err > max(ATOL, bf16_ulp(score_of[e])):
-                raise AssertionError(f"{r.sample_id}: score error {err:.3e} at {e} > max({ATOL}, 1 bf16 ulp)")
-            max_err = max(max_err, err)
-        kth = float(f.scores[n - 1])
-        diff = set(got) ^ set(f.edge_ids[:n].tolist())
-        far = [e for e in diff if abs(score_of[e] - kth) > max(TIE_TOL, bf16_ulp(kth))]
-        if far:
-            raise AssertionError(f"{r.sample_id}: ids {far} differ beyond the near-tie rule")
-        swapped += bool(diff)
-    if swapped > MAX_SWAPPED:
-        raise AssertionError(f"{swapped} questions differ by near-tie swaps (at most {MAX_SWAPPED})")
-    return plain, swapped, max_err
 
 
 def profile_serve(bundle, ds, kw):
@@ -702,6 +622,7 @@ def phase_cli():
     import numpy as np
 
     from evi_rag_tpu_torch import cli
+    from evi_rag_tpu_torch.bench import make_bundle
     from evi_rag_tpu_torch.ops import score_kernels as sk
     from evi_rag_tpu_torch.train.checkpoint import save_checkpoint
 
@@ -734,33 +655,6 @@ def phase_cli():
         f"{m['validation/serve/recall@20']} q/s {m['validation/queries_per_s']} "
         f"kernel launches {launches} (D = H = 64)")
     return m
-
-
-def hold_to_plain(vals, ids, plain, k: int) -> tuple[float, int]:
-    """Hold a kernel's top-k rows to its plain version's full score rows:
-    ids distinct and in range, values within ATOL of the plain score of the
-    same id, sorted, and every id in one top-k but not the other within
-    TIE_TOL of the plain k-th score.  Returns (max abs error, differing ids)."""
-    import numpy as np
-
-    v, i, s = vals.cpu().numpy(), ids.cpu().numpy(), plain.cpu().numpy()
-    max_err, differing = 0.0, 0
-    for b in range(v.shape[0]):
-        if len(set(i[b].tolist())) != k or i[b].min() < 0 or i[b].max() >= s.shape[1]:
-            raise AssertionError(f"query {b}: ids out of range or repeated")
-        if (np.diff(v[b]) > 0).any():
-            raise AssertionError(f"query {b}: values not sorted descending")
-        max_err = max(max_err, float(np.abs(v[b] - s[b, i[b]]).max()))
-        want = np.argsort(-s[b], kind="stable")[:k]
-        kth = s[b, want[-1]]
-        diff = set(i[b].tolist()) ^ set(want.tolist())
-        far = [e for e in diff if abs(s[b, e] - kth) > TIE_TOL]
-        if far:
-            raise AssertionError(f"query {b}: ids {far} differ beyond the near-tie rule")
-        differing += len(diff) // 2
-    if max_err > ATOL:
-        raise AssertionError(f"max score error {max_err:.3e} > {ATOL}")
-    return max_err, differing
 
 
 def pooled_inputs(bundle_np, dev):
@@ -797,6 +691,7 @@ def pooled_inputs(bundle_np, dev):
 def phase_pooled(bundle_np):
     import torch
 
+    from evi_rag_tpu_torch.bench import hold_to_plain
     from evi_rag_tpu_torch.ops import score_kernels as sk
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -1937,7 +1832,7 @@ def profile_encode(model, ids, mask):
 def phase_built_serve(retriever_ckpt: str):
     """9d: ``seed_stats`` through the CLI on the built split, then ``serve``
     of it with phase 7a's D = 1024 retriever through kernel 3, held to the
-    plain-version serve by phase 4's rule."""
+    plain-version serve by phase 4's rule, its widest bucket BUILT_RANK."""
     import numpy as np
 
     from evi_rag_tpu_torch import cli
@@ -1955,8 +1850,11 @@ def phase_built_serve(retriever_ckpt: str):
     samples, q_emb = load_retrieval_split(root, "validation")
     ent = np.load(root / "embeddings" / "entity_embeddings.npy")
     rel = np.load(root / "embeddings" / "relation_embeddings.npy")
-    return {"seed_stats": stats, "serve": serve_against_plain("9d serve", retriever_ckpt, samples, ent, rel, q_emb,
-                                                             BUILT_RANK)}
+    serve = serve_against_plain("9d serve", retriever_ckpt, samples, ent, rel, q_emb, BUILT_RANK)
+    # BUILD_QUESTIONS cuts the split; kernel 3 must still serve its widest bucket.
+    if max(serve["buckets"]) != BUILT_RANK:
+        raise AssertionError(f"9d serve: the largest bucket is M={max(serve['buckets'])}, not {BUILT_RANK}")
+    return {"seed_stats": stats, "serve": serve}
 
 
 def serve_against_plain(label: str, retriever_ckpt, samples, ent, rel, q_emb, width: int) -> dict:
@@ -1968,8 +1866,9 @@ def serve_against_plain(label: str, retriever_ckpt, samples, ent, rel, q_emb, wi
 
     import numpy as np
 
+    from evi_rag_tpu_torch.bench import full_ranking, hold_serve_to_plain
     from evi_rag_tpu_torch.ops import score_kernels as sk
-    from evi_rag_tpu_torch.serving import _pow2_at_least, project_tables, serve_recall_at_k, serve_split
+    from evi_rag_tpu_torch.serving import bucket_width, project_tables, serve_recall_at_k, serve_split
     from evi_rag_tpu_torch.train.checkpoint import bundle_from_numpy, export_retriever_features, load_checkpoint
 
     tree, meta = load_checkpoint(retriever_ckpt)
@@ -1985,12 +1884,9 @@ def serve_against_plain(label: str, retriever_ckpt, samples, ent, rel, q_emb, wi
     if launches == 0:
         raise AssertionError(f"{label}: serve never launched kernel 3")
     order = sorted(samples, key=lambda s: s.edge_index.shape[1])
-    buckets = collections.Counter(
-        max(_pow2_at_least(max(s.edge_index.shape[1] for s in g)), _pow2_at_least(K),
-            _pow2_at_least(max(s.num_nodes for s in g) + 1))
-        for g in (order[i : i + 16] for i in range(0, len(order), 16)))
-    full, _ = serve_split(bundle, samples, fused_fn=functools.partial(plain_full_ranking, width=width), **kw)
-    plain, swapped, max_err = check_against_plain(samples, results, full)
+    buckets = collections.Counter(bucket_width(order[i : i + 16], K) for i in range(0, len(order), 16))
+    full, _ = serve_split(bundle, samples, fused_fn=functools.partial(full_ranking, width=width), **kw)
+    plain, swapped, max_err = hold_serve_to_plain(samples, results, full)
     rec_k = serve_recall_at_k(samples, results, [10, 100])
     rec_p = serve_recall_at_k(samples, plain, [10, 100])
     slack = swapped / len(samples)
@@ -2204,6 +2100,7 @@ def phase_sharded_query(bundle_np, index) -> dict:
     phase 6); ``query_topk_sharded`` (f32, 8 queries) against ``query_topk``."""
     import torch
 
+    from evi_rag_tpu_torch.bench import hold_to_plain
     from evi_rag_tpu_torch.ops import score_kernels as sk
     from evi_rag_tpu_torch.ops.query import query_topk, query_topk_sharded, query_topk_sharded_fused
     from evi_rag_tpu_torch.train.checkpoint import bundle_from_numpy
@@ -2280,6 +2177,7 @@ def phase_knn() -> dict:
     card (the near-tie rule; approx by its overlap >= 0.8 k)."""
     import torch
 
+    from evi_rag_tpu_torch.bench import hold_to_plain
     from evi_rag_tpu_torch.ops import knn
     from evi_rag_tpu_torch.parallel.mesh import make_mesh
 
@@ -2331,6 +2229,7 @@ def phase_dp_serve(ctx) -> dict:
     import numpy as np
     import torch
 
+    from evi_rag_tpu_torch.bench import hold_serve_to_plain
     from evi_rag_tpu_torch.ops import score_kernels as sk
     from evi_rag_tpu_torch.parallel.mesh import make_mesh
     from evi_rag_tpu_torch.serving import serve_recall_at_k, serve_split
@@ -2358,7 +2257,7 @@ def phase_dp_serve(ctx) -> dict:
                                               for _ in range(2)])
         equal = sum(np.array_equal(a.edge_ids, b.edge_ids) and np.array_equal(a.scores, b.scores)
                     for a, b in zip(single, results))
-        _, swapped, max_err = check_against_plain(ds.samples, results, full)
+        _, swapped, max_err = hold_serve_to_plain(ds.samples, results, full)
         rec = serve_recall_at_k(ds.samples, results, [10, 100])
         rows[label] = dict(qps=qps, launches=launches, launches_by_device=by_device, groups=stats.num_groups,
                            bit_equal_questions=equal, swapped=swapped, max_abs_err=max_err, recall=rec)
@@ -2493,11 +2392,15 @@ NAN_ROW = 5                # (e): the row of W1 set to NaN (the inter block, whi
 # (f): the build's rows, a few dozen texts (pool entities, relations and
 # questions) of the WebQSP preset; the sweep's trials.
 DEBUG_BUILD_ROWS = dict(counts={"train": 0, "validation": 3, "test": 0}, pool=40, relations=8, edge_cap=24)
-DEBUG_SWEEP_TRIALS = 2
+DEBUG_SWEEP_TRIALS = 1
+# (a) and (b): eight fresh processes in two waves, each wave's two
+# experiment=debug runs side by side (4 x ~12 GiB at most on the card).
+DEBUG_AB_WAVES = (("a_off", "a_deterministic", "a_debug_nans", "b_off"),
+                  ("a_debug1", "a_debug2", "b_debug1", "b_debug2"))
 FOUR_TASKS = ("build", "eval_retriever", "eval_gflownet", "sweep")
 # (f) runs in two waves of fresh processes: twelve at once (three sweeps at
 # ~11.5 GiB each among them) can fill the card's 80 GB.
-FOUR_TASK_WAVES = (("build", "eval_retriever", "eval_gflownet"), ("sweep",))
+FOUR_TASK_WAVES = (("build", "sweep"), ("eval_retriever", "eval_gflownet"))
 DEBUG_CHILD = "import sys, chip_smoke; sys.exit(chip_smoke.debug_child(sys.argv[1]))"
 
 
@@ -2617,6 +2520,7 @@ def debug_kernels() -> dict:
     input (``PQT_DIGEST``); a NaN made in a backward op."""
     import torch
 
+    from evi_rag_tpu_torch.bench import make_bundle
     from evi_rag_tpu_torch.ops import score_kernels as sk
     from evi_rag_tpu_torch.testing import PQT_DIGEST, pqt_digest
     from evi_rag_tpu_torch.utils import extras
@@ -2727,19 +2631,32 @@ def debug_runs(smi: str, retriever_ckpt: str) -> dict:
     def walls(runs: dict) -> str:
         return ", ".join(f"{n} {r['wall_s']:.1f} (task {r['task_s']:.1f})" for n, r in runs.items())
 
-    # (a) train_retriever, 1 epoch at production width.
+    # (a) train_retriever, 1 epoch at production width, and (b) train_gflownet,
+    # 1 epoch at hidden 1024 on phase 8a's stores: a fresh process each, in
+    # the waves of DEBUG_AB_WAVES (the step ms of a run are taken under its
+    # wave's contention).
     train = ["retriever=production", "retriever.train.max_epochs=1", "retriever.train.optimizer.schedule=constant"]
-    a = {}
-    for name, extra in modes.items():
-        a[name] = run_debug_child(f"a_{name}", {"argv": argv("train_retriever", f"a_{name}", [
-            *train, *extra, f"retriever.train.ckpt_dir={DEBUG_WORK / f'a_{name}'}"])})
+    gfn = [f"gflownet.hidden_dim={H}", f"retriever.ckpt={retriever_ckpt}",
+           f"gflownet.g_agent_dir={GFN_WORK / 'art' / 'g_agent'}", "gflownet.max_epochs=1"]
+    specs = {f"a_{name}": ({"argv": argv("train_retriever", f"a_{name}", [
+        *train, *extra, f"retriever.train.ckpt_dir={DEBUG_WORK / f'a_{name}'}"])}, False)
+        for name, extra in modes.items()}
+    specs.update({f"b_{name}": ({"argv": argv("train_gflownet", f"b_{name}", [
+        *gfn, *modes[name], f"gflownet.ckpt_dir={DEBUG_WORK / f'b_{name}'}"])}, False)
+        for name in ("off", "debug1", "debug2")})
+    recs = {}
+    for wave in DEBUG_AB_WAVES:
+        recs.update(run_debug_children({label: specs[label] for label in wave}))
+    a = {name: recs[f"a_{name}"] for name in modes}
+    for name in a:
         a[name]["digest"] = latest_metrics(DEBUG_DIR / "logs" / f"a_{name}")["best_ckpt_sha256"]
     if a["debug1"]["digest"] != a["debug2"]["digest"]:
         raise AssertionError(f"debug a: two deterministic runs give digests {a['debug1']['digest']} and "
                              f"{a['debug2']['digest']}")
     ms = {n: median(r["steps_ms"]) for n, r in a.items()}
     log(f"[debug a] train_retriever retriever=production (D = H = {D}, bf16, batch {TRAIN_BATCH}), 1 epoch of "
-        f"{TRAIN_QUESTIONS} questions ({len(a['off']['steps_ms'])} steps), a fresh process each: step ms median "
+        f"{TRAIN_QUESTIONS} questions ({len(a['off']['steps_ms'])} steps), a fresh process each, {len(DEBUG_AB_WAVES)} "
+        f"waves of {len(DEBUG_AB_WAVES[0])} runs with (b): step ms median "
         f"(wall clock between syncs) off {ms['off']:.2f}, deterministic {ms['deterministic']:.2f}, debug_nans "
         f"{ms['debug_nans']:.2f}, both {ms['debug1']:.2f} / {ms['debug2']:.2f} ({ms['debug1'] / ms['off']:.2f}x); "
         f"experiment=debug twice: digest {a['debug1']['digest'][:16]}... both runs; the run without extras "
@@ -2748,15 +2665,9 @@ def debug_runs(smi: str, retriever_ckpt: str) -> dict:
     out["a"] = dict(step_ms=ms, digests={n: r["digest"] for n, r in a.items()}, steps=len(a["off"]["steps_ms"]),
                     wall_s={n: r["wall_s"] for n, r in a.items()}, task_s={n: r["task_s"] for n, r in a.items()})
 
-    # (b) train_gflownet, 1 epoch at hidden 1024 on phase 8a's stores.
-    gfn = [f"gflownet.hidden_dim={H}", f"retriever.ckpt={retriever_ckpt}",
-           f"gflownet.g_agent_dir={GFN_WORK / 'art' / 'g_agent'}", "gflownet.max_epochs=1"]
-    b = {}
-    for name in ("off", "debug1", "debug2"):
-        ck = DEBUG_WORK / f"b_{name}"
-        b[name] = run_debug_child(f"b_{name}", {"argv": argv("train_gflownet", f"b_{name}", [
-            *gfn, *modes[name], f"gflownet.ckpt_dir={ck}"])})
-        b[name]["digest"] = json.loads((ck / "best" / "meta.json").read_text())["params_sha256"]
+    b = {name: recs[f"b_{name}"] for name in ("off", "debug1", "debug2")}
+    for name in b:
+        b[name]["digest"] = json.loads((DEBUG_WORK / f"b_{name}" / "best" / "meta.json").read_text())["params_sha256"]
     if b["debug1"]["digest"] != b["debug2"]["digest"]:
         raise AssertionError(f"debug b: two deterministic runs give digests {b['debug1']['digest']} and "
                              f"{b['debug2']['digest']}")
@@ -2770,23 +2681,12 @@ def debug_runs(smi: str, retriever_ckpt: str) -> dict:
     out["b"] = dict(step_ms=gms, digests={n: r["digest"] for n, r in b.items()}, steps=len(b["off"]["steps_ms"]),
                     wall_s={n: r["wall_s"] for n, r in b.items()}, task_s={n: r["task_s"] for n, r in b.items()})
 
-    # (c) serve (a)'s checkpoint under the profile and without it.
+    # (c) serve (a)'s checkpoint under the profile and without it, beside (d)
+    # the kernels under both modes and (e) planted NaNs: a NaN learning rate,
+    # and a NaN row of W1 (no time of (d) and (e) is a result; (c)'s q/s are
+    # taken beside them).
     ckpt = DEBUG_WORK / "a_debug1" / "best"
     serve = ["serve.splits=[validation]", f"serve.k={K}", f"retriever.ckpt={ckpt}"]
-    c = {name: run_debug_child(f"c_{name}", {"argv": argv("serve", f"c_{name}", [*serve, *modes[name]])})
-         for name in ("off", "debug1")}
-    if c["off"]["serve_sha256"] != c["debug1"]["serve_sha256"] or min(r["pqt_launches"] for r in c.values()) <= 0:
-        raise AssertionError(f"debug c: serve under experiment=debug {c['debug1']} vs without {c['off']}")
-    log(f"[debug c] serve of (a)'s checkpoint on phase 4's split ({QUESTIONS} questions, k = {K}): ids and scores "
-        f"bit for bit the run without extras (sha256 {c['off']['serve_sha256'][:16]}...), kernel 3 launches "
-        f"{c['debug1']['pqt_launches']} (without extras {c['off']['pqt_launches']}); q/s off "
-        f"{c['off']['serve_qps']}, experiment=debug {c['debug1']['serve_qps']}; task s off {c['off']['task_s']:.1f}, "
-        f"experiment=debug {c['debug1']['task_s']:.1f}")
-    out["c"] = dict(sha256=c["off"]["serve_sha256"], pqt_launches=c["debug1"]["pqt_launches"],
-                    qps={n: r["serve_qps"] for n, r in c.items()}, task_s={n: r["task_s"] for n, r in c.items()})
-
-    # (d) the kernels under both modes, beside (e) planted NaNs: a NaN
-    # learning rate, and a NaN row of W1 (no time of these three is a result).
     tree, meta = load_checkpoint(ckpt)
     flat = flatten_tree(tree["params"])
     (key,) = [k for k in flat if k.endswith("state_net_0/kernel")]
@@ -2795,7 +2695,9 @@ def debug_runs(smi: str, retriever_ckpt: str) -> dict:
     nan_ckpt = DEBUG_WORK / "e_nan_w1"
     save_checkpoint(nan_ckpt, unflatten_tree({**flat, key: w1}), meta={"parity_meta": meta["parity_meta"]})
     ck = DEBUG_WORK / "e_nan_lr"
-    de = run_debug_children({
+    cde = run_debug_children({
+        **{f"c_{name}": ({"argv": argv("serve", f"c_{name}", [*serve, *modes[name]])}, False)
+           for name in ("off", "debug1")},
         "d_kernels": ({"kernels": True}, False),
         "e_nan_lr": ({"argv": argv("train_retriever", "e_nan_lr", [
             *train, "experiment=debug", "retriever.train.optimizer.learning_rate=.nan",
@@ -2803,7 +2705,18 @@ def debug_runs(smi: str, retriever_ckpt: str) -> dict:
         "e_nan_w1": ({"argv": argv("serve", "e_nan_w1", [
             "serve.splits=[validation]", f"serve.k={K}", f"retriever.ckpt={nan_ckpt}", "experiment=debug"])}, True),
     })
-    d, e1, e2 = de["d_kernels"], de["e_nan_lr"], de["e_nan_w1"]
+    c = {name: cde[f"c_{name}"] for name in ("off", "debug1")}
+    if c["off"]["serve_sha256"] != c["debug1"]["serve_sha256"] or min(r["pqt_launches"] for r in c.values()) <= 0:
+        raise AssertionError(f"debug c: serve under experiment=debug {c['debug1']} vs without {c['off']}")
+    log(f"[debug c] serve of (a)'s checkpoint on phase 4's split ({QUESTIONS} questions, k = {K}): ids and scores "
+        f"bit for bit the run without extras (sha256 {c['off']['serve_sha256'][:16]}...), kernel 3 launches "
+        f"{c['debug1']['pqt_launches']} (without extras {c['off']['pqt_launches']}); q/s off "
+        f"{c['off']['serve_qps']}, experiment=debug {c['debug1']['serve_qps']} (beside (d) and (e)); task s off "
+        f"{c['off']['task_s']:.1f}, experiment=debug {c['debug1']['task_s']:.1f}")
+    out["c"] = dict(sha256=c["off"]["serve_sha256"], pqt_launches=c["debug1"]["pqt_launches"],
+                    qps={n: r["serve_qps"] for n, r in c.items()}, task_s={n: r["task_s"] for n, r in c.items()})
+
+    d, e1, e2 = cde["d_kernels"], cde["e_nan_lr"], cde["e_nan_w1"]
     if not (d["score_bidirectional"] and d["query_topk_per_query"] and d["query_topk_fused"]
             and d["pqt_digest_equal"] and d["backward_nan"]):
         raise AssertionError(f"debug d: {d}")
@@ -2817,7 +2730,7 @@ def debug_runs(smi: str, retriever_ckpt: str) -> dict:
         raise AssertionError(f"debug e: the NaN row of W1 gave {e2}")
     log(f"[debug e] NaN learning rate: exit code {e1['rc']} after {len(e1['steps_ms'])} completed steps, no "
         f"ckpt/best, \"{e1['error']}\"; NaN in row {NAN_ROW} of W1 ({key}), serve experiment=debug: exit code "
-        f"{e2['rc']}, \"{e2['error']}\"; (d) and (e) ran at once in {max(r['wall_s'] for r in de.values()):.1f} s")
+        f"{e2['rc']}, \"{e2['error']}\"; (c), (d) and (e) ran at once in {max(r['wall_s'] for r in cde.values()):.1f} s")
     out["e"] = dict(nan_lr=e1["error"], nan_w1=e2["error"])
     out["f"] = debug_four_tasks(common, modes, retriever_ckpt)
     return out
@@ -2886,63 +2799,17 @@ CROSSOVER_ITERS = 8
 
 
 def phase_crossover(smi: str) -> list:
-    """``--crossover``: the card's counterpart of
-    ``scripts/measure_fused_crossover.py``.  ``serve_window`` on the same
-    device-resident feeds (two buckets of 16 questions, D = 1024, lengths in
-    (m_pad / 2, m_pad], k = min(100, m_pad)) through kernel 3 and through the
-    plain bf16 scorer, at each m_pad: wall ms per call (CUDA synchronised,
-    median of 4 repetitions of CROSSOVER_ITERS calls, the two paths
-    alternated plain, kernel, kernel, plain)."""
-    import numpy as np
-    import torch
+    """``--crossover``: the port of ``scripts/measure_fused_crossover.py``
+    (``evi_rag_tpu_torch/scripts/measure_fused_crossover.py``: its feeds, two
+    buckets of 16 questions at D = 1024, ``serve_window`` through kernel 3
+    and through the plain bf16 scorer, the best of 3 windows of
+    CROSSOVER_ITERS calls each) at m_pad 8 .. 4096, k = min(100, m_pad); then
+    the smallest m_pad from which the kernel is faster at every larger
+    width."""
+    from evi_rag_tpu_torch.scripts import measure_fused_crossover
 
-    from evi_rag_tpu_torch.ops.score_kernels import prep_weights
-    from evi_rag_tpu_torch.serving import serve_window
-    from evi_rag_tpu_torch.train.checkpoint import bundle_from_numpy
-
-    dev = torch.device("cuda", torch.cuda.current_device())
-    bundle = {"features": bundle_from_numpy(make_bundle(D, H, S)["features"], device=dev)}
-    w = prep_weights(bundle["features"])
-    rng = np.random.default_rng(0)
-    vocab, rels, n_q, b_n, g_n = 4096, 512, 64, 2, 16
-    ent = torch.as_tensor(rng.normal(size=(vocab, D)).astype(np.float32), device=dev)
-    rel = torch.as_tensor(rng.normal(size=(rels, D)).astype(np.float32), device=dev)
-    q_table = torch.as_tensor(rng.normal(size=(n_q, D)).astype(np.float32), device=dev)
-    tables = {False: (ent, rel), True: (ent.to(torch.bfloat16), rel.to(torch.bfloat16))}
-    rows = []
-    for m_pad in CROSSOVER_WIDTHS:
-        n_pad = min(max(64, m_pad // 2), 4096)
-        feed = [torch.as_tensor(x, device=dev) for x in (
-            rng.integers(0, n_pad - 1, size=(b_n, g_n, 2, m_pad)).astype(np.int32),
-            rng.integers(0, vocab, size=(b_n, g_n, n_pad)).astype(np.int32),
-            rng.integers(0, rels, size=(b_n, g_n, m_pad)).astype(np.int32),
-            rng.integers(m_pad // 2 + 1, m_pad + 1, size=(b_n, g_n)).astype(np.int32),
-            (rng.random(size=(b_n, g_n, n_pad)) < 0.05).astype(np.uint8),
-            np.full((b_n, g_n), n_pad, np.int32),
-            rng.integers(0, n_q, size=(b_n, g_n)).astype(np.int32))]
-        k = min(K, m_pad)
-
-        def call(fused: bool):
-            return serve_window(bundle, q_table, *tables[fused], *feed, k=k, num_rounds=2, num_reverse_rounds=2,
-                                dtype=torch.bfloat16, use_fused=fused, weights=w if fused else None)
-
-        times: dict = {False: [], True: []}
-        for fused in (False, True):
-            call(fused)
-        for fused in (False, True, True, False) * 2:
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            for _ in range(CROSSOVER_ITERS):
-                call(fused)
-            torch.cuda.synchronize()
-            times[fused].append((time.perf_counter() - t) * 1e3 / CROSSOVER_ITERS)
-        row = dict(m_pad=m_pad, k=k, plain_ms=median(times[False]), kernel_ms=median(times[True]))
-        row["kernel_speedup"] = row["plain_ms"] / row["kernel_ms"]
-        rows.append(row)
-        log(f"[crossover] m_pad {m_pad:5d} (k {k:3d}): plain bf16 scorer {row['plain_ms']:8.3f} ms, kernel 3 "
-            f"{row['kernel_ms']:8.3f} ms per serve_window call ({b_n} x {g_n} questions), kernel speedup "
-            f"{row['kernel_speedup']:.3f}x")
-    first = next((r["m_pad"] for r in rows if all(x["kernel_speedup"] > 1.0 for x in rows if x["m_pad"] >= r["m_pad"])),
+    rows = measure_fused_crossover.main(k=K, dim=D, iters=CROSSOVER_ITERS, widths=CROSSOVER_WIDTHS)
+    first = next((r["m_pad"] for r in rows if all(x["fused_speedup"] > 1.0 for x in rows if x["m_pad"] >= r["m_pad"])),
                  None)
     log(json.dumps({"crossover": rows, "kernel_faster_from_m_pad": first, "fused_threshold_default": 256,
                     "nvidia_smi": smi}))
@@ -2982,6 +2849,7 @@ def phase_ablation(m: int) -> None:
     import numpy as np
     import torch
 
+    from evi_rag_tpu_torch.bench import make_bundle
     from evi_rag_tpu_torch.ops import _build, score_kernels as sk
     from evi_rag_tpu_torch.train.checkpoint import bundle_from_numpy
 
@@ -3207,6 +3075,7 @@ def route_serve(label: str, emb: int, hidden: int, rounds: int, k: int, limit: s
     import numpy as np
 
     from evi_rag_tpu_torch import cli
+    from evi_rag_tpu_torch.bench import hold_serve_to_plain, make_bundle
     from evi_rag_tpu_torch.data.synthetic import make_synthetic_dataset
     from evi_rag_tpu_torch.ops import score_kernels as sk
     from evi_rag_tpu_torch.serving import project_tables, serve_recall_at_k, serve_split
@@ -3265,7 +3134,7 @@ def route_serve(label: str, emb: int, hidden: int, rounds: int, k: int, limit: s
         if not (np.array_equal(a.edge_ids, b.edge_ids) and np.array_equal(a.scores, b.scores)):
             raise AssertionError(f"12a {label}: {a.sample_id} differs from the plain serve")
     full, _ = serve_split(bundle, ds.samples, k=FULL_RANK, fused_threshold=1 << 30, **kw)  # every edge ranked
-    _, swapped, max_err = check_against_plain(ds.samples, results, full)
+    _, swapped, max_err = hold_serve_to_plain(ds.samples, results, full)
     k_grid = [10, 100]
     rec = serve_recall_at_k(ds.samples, results, k_grid)
     cli_rec = {key: metrics[f"validation/{key}"] for key in rec}
@@ -3310,6 +3179,7 @@ def route_pooled(bundle_np) -> dict:
     edges and ends held to the plain versions."""
     import torch
 
+    from evi_rag_tpu_torch.bench import hold_to_plain
     from evi_rag_tpu_torch.ops import score_kernels as sk
     from evi_rag_tpu_torch.ops.query import build_triple_index
     from evi_rag_tpu_torch.train.checkpoint import bundle_from_numpy
@@ -3970,6 +3840,97 @@ def chain_table(metrics: dict) -> dict:
     return {row: (got[row], tpu, CPU_CHAIN_JAX.get(row)) for row, tpu in ROUND4.items()}
 
 
+BENCH_DETAILS = OUT_DIR / "bench_torch_details.json"  # phase 13: the port bench's details
+BENCH_TIMEOUT_S = 900
+BENCH_LATENCY_TOL = 0.10   # the bench's batch-128 latency and MFU against phase 6's kernel 2
+
+
+def finite(x) -> bool:
+    """A finite number, or a non-empty list of them."""
+    import math
+
+    if isinstance(x, list):
+        return bool(x) and all(finite(v) for v in x)
+    return isinstance(x, (int, float)) and not isinstance(x, bool) and math.isfinite(x)
+
+
+def phase_bench(smi: str, pooled: dict) -> dict:
+    """13: ``python -m evi_rag_tpu_torch.bench`` (the port of ``bench.py``)
+    in a fresh process on the card, its details in
+    ``chiprun_out/bench_torch_details.json`` and its stderr in
+    ``chiprun_out/bench_torch.log``.  Checks: exit 0; the last line parses,
+    with a numeric value and this card's name and power limit; every key of
+    ``bench.DETAIL_KEYS`` present and finite; the batch-128 latency within
+    10% of phase 6's kernel-2 ms, and ``mfu_fused_131k`` within 10% of phase
+    6's (its kernel-2 bound over its ms); kernel 2 launched once per
+    headline pass (and kernels 1 and 3 not at all there); kernel 3 launched
+    on the realistic serve point; the headline's, the batch-8 point's and
+    the 1M point's kernel-2 top-k and both serve points' cold passes held to
+    the plain version (``checks``), the held questions those of the groups
+    kernel 3 served (its launches a pass: those groups and the warmup)."""
+    import torch
+
+    from evi_rag_tpu_torch import bench
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with open(OUT_DIR / "bench_torch.log", "w") as err:
+        proc = subprocess.run([sys.executable, "-m", "evi_rag_tpu_torch.bench", "--details", str(BENCH_DETAILS)],
+                              cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True, timeout=BENCH_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the bench exited {proc.returncode}: {proc.stdout.strip()[-600:]} "
+                             "(stderr in chiprun_out/bench_torch.log)")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    det = json.loads(BENCH_DETAILS.read_text())
+    name = torch.cuda.get_device_name(0)
+    if not finite(line["value"]) or line["device"] != name or not finite(line["power_limit_w"]):
+        raise AssertionError(f"the bench's last line {line} lacks a numeric value or this card ({name})")
+    if line["metric"] != bench.METRIC_NAME or det["device"] != name:
+        raise AssertionError(f"the bench's metric or details' device: {line['metric']}, {det['device']}")
+    bad = [k for k in bench.DETAIL_KEYS if k not in det or not (finite(det[k]) or k == "engine")]
+    if bad:
+        raise AssertionError(f"the bench's details lack or hold non-finite {bad}")
+    lat = det[f"query_latency_ms_batch{POOLED_B}"]
+    ms6 = pooled["ms"]["query_topk_fused"]
+    if abs(lat - ms6) > BENCH_LATENCY_TOL * ms6:
+        raise AssertionError(f"the bench's batch-{POOLED_B} latency {lat} ms is not within "
+                             f"{BENCH_LATENCY_TOL:.0%} of phase 6's kernel-2 {ms6:.3f} ms")
+    mfu6 = pooled["bounds"]["query_topk_fused"][0] / ms6
+    if abs(det["mfu_fused_131k"] - mfu6) > BENCH_LATENCY_TOL * mfu6:
+        raise AssertionError(f"mfu_fused_131k {det['mfu_fused_131k']} is not within {BENCH_LATENCY_TOL:.0%} of "
+                             f"phase 6's {mfu6:.4f}")
+    launches = det["launches"]
+    head = launches["headline"]
+    if head["query_topk_fused"] != head["passes"] or head["per_question_topk"] or head["score_bidirectional"]:
+        raise AssertionError(f"the headline's launches {head}: kernel 2 once a pass, no other kernel")
+    if launches["serve realistic"]["per_question_topk"] <= 0:
+        raise AssertionError(f"kernel 3 never launched on the realistic serve point: {launches['serve realistic']}")
+    for point in ("headline", "batch8", "1m_fused"):
+        c = det["checks"].get(point)
+        if not c or c["queries"] <= 0 or c["max_abs_err"] > bench.CHECK_ATOL:
+            raise AssertionError(f"kernel 2's {point} check {c}")
+    for point, section in (("serve", "serve surface"), ("serve_realistic", "serve realistic")):
+        # Each serve pass launches kernel 3 once a kernel-routed group and once
+        # in its warmup: the held questions are the ones it served.
+        c, row = det["checks"].get(point), launches[section]
+        if not c or c["questions"] <= 0 or row["per_question_topk"] != row["passes"] * (c["groups"] + 1):
+            raise AssertionError(f"kernel 3's {point} check {c} against its launches {row}")
+    total = {fn: sum(row[fn] for row in launches.values()) for fn in ("per_question_topk", "score_bidirectional",
+                                                                        "query_topk_fused")}
+    log(f"[13 bench] python -m evi_rag_tpu_torch.bench exit 0 in {wall_s:.1f} s: {json.dumps(line)}")
+    log(f"[13 bench] headline {det['query_throughput_qps']} q/s, latency {lat} ms (phase 6's kernel 2 "
+        f"{ms6:.3f} ms), mfu_fused_131k {det['mfu_fused_131k']} (phase 6's {mfu6:.4f}); "
+        f"batch 8 {det['query_qps_batch8']} q/s; 1M fused {det['query_qps_1m_candidates_fused']} / plain "
+        f"{det['query_qps_1m_candidates_plain']} q/s; serve {det['serve_qps_warm_256q_d1024']} / realistic "
+        f"{det['serve_qps_realistic_1024q_d1024']} q/s")
+    log(f"[13 bench] checks against the plain version: {json.dumps(det['checks'])}")
+    log(f"[13 bench] launches by section {json.dumps(launches)}; {smi}")
+    log(f"[13 bench] details {json.dumps({k: det[k] for k in bench.DETAIL_KEYS})}")
+    return dict(wall_s=wall_s, line=line, launches=launches, launches_total=total, checks=det["checks"],
+                details={k: det[k] for k in bench.DETAIL_KEYS})
+
+
 def main() -> int:
     if not (ROOT / "evi_rag_tpu_torch" / "serving.py").is_file():
         print("chip_smoke: run from a checkout of the repository (evi_rag_tpu_torch/ missing)",
@@ -3982,6 +3943,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     OUT_DIR.mkdir(exist_ok=True)
+    from evi_rag_tpu_torch.bench import make_bundle
 
     if sys.argv[1:2] == ["--ablation"]:
         phase_device()
@@ -4006,30 +3968,41 @@ def main() -> int:
                                                  "count": torch.cuda.device_count()}}))
         return 0
     t_all = time.perf_counter()
+    walls: dict[str, float] = {}
+
+    def timed(label: str, fn, *args):
+        """``fn(*args)``, its wall seconds logged and kept in ``walls``."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[label] = time.perf_counter() - t0
+        log(f"[wall] {label} {walls[label]:.1f} s (script {time.perf_counter() - t_all:.1f} s)")
+        return out
+
     smi = phase_device()
-    build_s = phase_build()
+    build_s = timed("2 build", phase_build)
     bundle_np = make_bundle(D, H, S, seed=11)
-    rows = phase_kernel(bundle_np)
-    serve = phase_serve(bundle_np, QUESTIONS)
-    cli_metrics = phase_cli()
-    pooled = phase_pooled(bundle_np)
-    train = phase_train(smi)
+    rows = timed("3 kernel", phase_kernel, bundle_np)
+    serve = timed("4 serve", phase_serve, bundle_np, QUESTIONS)
+    cli_metrics = timed("5 cli", phase_cli)
+    pooled = timed("6 pooled", phase_pooled, bundle_np)
+    train = timed("7 train", phase_train, smi)
     load_split = realistic_loader()
-    gflownet = phase_gflownet(smi, train["retriever_ckpt"], load_split)
+    gflownet = timed("8 gflownet", phase_gflownet, smi, train["retriever_ckpt"], load_split)
     try:
-        debug = phase_debug(smi, train["retriever_ckpt"])
-        eval_gfn = phase_eval_gflownet_card_vs_cpu(smi, load_split)
-        fit_gfn = phase_fit_gflownet_card_vs_cpu(smi, load_split)
+        debug = timed("debug", phase_debug, smi, train["retriever_ckpt"])
+        eval_gfn = timed("12c", phase_eval_gflownet_card_vs_cpu, smi, load_split)
+        fit_gfn = timed("12d", phase_fit_gflownet_card_vs_cpu, smi, load_split)
     finally:
         shutil.rmtree(GFN_WORK)  # phase 8's ~100 MB of stores, records and checkpoints
-    native_bfs = phase_native()
-    build = phase_build_data(smi, train["retriever_ckpt"])
-    sweep = phase_sweep(smi, load_split)
+    native_bfs = timed("9a native", phase_native)
+    build = timed("9 build", phase_build_data, smi, train["retriever_ckpt"])
+    sweep = timed("10 sweep", phase_sweep, smi, load_split)
     serve_ctx = serve.pop("_ctx")
-    multi = phase_multidevice(smi, bundle_np, serve_ctx)
-    route = phase_route(smi, bundle_np, serve_ctx)
+    multi = timed("11 multi-device", phase_multidevice, smi, bundle_np, serve_ctx)
+    route = timed("12a route", phase_route, smi, bundle_np, serve_ctx)
     del serve_ctx
-    quality = phase_quality(smi)
+    quality = timed("12b quality", phase_quality, smi)
+    port_bench = timed("13 bench", phase_bench, smi, pooled)
 
     rep = next(r for r in rows if r["M"] == REPORT_M)
     kernels = [{
@@ -4046,6 +4019,7 @@ def main() -> int:
         "launches_dp_serve": multi["11d"]["launches"],
         "launches_debug_serve": debug["c"]["pqt_launches"],
         "launches_route_phase4_serve": route["phase4"]["launches"],
+        "launches_bench": port_bench["launches_total"]["per_question_topk"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": rep["ms"],
         "plain_ms": rep["plain_ms"],
@@ -4065,7 +4039,8 @@ def main() -> int:
             "source": f"evi_rag_tpu_torch/csrc/{sources[name]}",
             "replaces": f"evi_rag_tpu/ops/pallas_score.py:{replaces[name]}",
             "launches": pooled["launches"][name],
-            **({"launches_sharded_pooled": multi["11b"]["launches"]} if name == "query_topk_fused" else {}),
+            **({"launches_sharded_pooled": multi["11b"]["launches"],
+                "launches_bench": port_bench["launches_total"][name]} if name == "query_topk_fused" else {}),
             f"launches_b{ROUTE_B}": route["pooled"]["launches"][name],
             "max_abs_err": pooled["max_abs_err"][name],
             "ms": pooled["ms"][name],
@@ -4082,8 +4057,8 @@ def main() -> int:
     details = dict(nvidia_smi=smi, build_s=build_s, kernel=rows, serve=serve, cli=cli_metrics,
                    pooled=pooled, train=train, gflownet=gflownet, debug=debug, native_bfs=native_bfs, build=build, sweep=sweep,
                    multi=multi, route=route, quality=quality, eval_gflownet_card_vs_cpu=eval_gfn,
-                   fit_gflownet_card_vs_cpu=fit_gfn, kernels=kernels,
-                   wall_s=time.perf_counter() - t_all)
+                   fit_gflownet_card_vs_cpu=fit_gfn, bench=port_bench, kernels=kernels,
+                   phase_wall_s=walls, wall_s=time.perf_counter() - t_all)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(details, indent=2, default=str))
     log(f"[done] wall {details['wall_s']:.1f} s; details in chiprun_out/chip_smoke.json")
     log(json.dumps({"kernels": kernels}))

@@ -213,6 +213,15 @@ def _pow2_at_least(n: int, lo: int = 8) -> int:
     return v
 
 
+def bucket_width(group: Sequence[RetrievalSample], k: int) -> int:
+    """The padded edge width m_pad of one group's bucket: the power of two
+    that holds each question's edges, ``k``, and its nodes plus the padding
+    node (n_pad rides the same ladder)."""
+    m_pad = _pow2_at_least(max(max(s.edge_index.shape[1], 1) for s in group))
+    m_pad = max(m_pad, _pow2_at_least(k))
+    return max(m_pad, _pow2_at_least(max(s.num_nodes for s in group) + 1))
+
+
 @torch.inference_mode()
 def serve_split(
     bundle: dict[str, Any],
@@ -323,10 +332,7 @@ def serve_split(
     for g0 in range(0, len(order), group_size):
         idxs = order[g0 : g0 + group_size]
         group = [samples[i] for i in idxs]
-        m_pad = _pow2_at_least(max(max(s.edge_index.shape[1], 1) for s in group))
-        m_pad = max(m_pad, _pow2_at_least(k))
-        m_pad = max(m_pad, _pow2_at_least(max(s.num_nodes for s in group) + 1))
-        n_pad = m_pad
+        m_pad = n_pad = bucket_width(group, k)
         bytes_est = group_size * (
             3 * m_pad * 4            # eidx [2, m_pad] + rel_ids, int32
             + n_pad * 4 + n_pad      # node_rows + topic

@@ -1,9 +1,11 @@
 """The port stands alone and runs on the GPU unless told otherwise.
 
 * No file of ``evi_rag_tpu_torch/`` (its ``scripts/`` too) and not
-  ``chip_smoke.py`` imports JAX, flax, optax, orbax or anything of
-  ``evi_rag_tpu`` (an AST scan, so lazy imports inside functions count
-  too); the port's shell drivers call the port's CLI and never the JAX one.
+  ``chip_smoke.py`` imports JAX, flax, optax, orbax, anything of
+  ``evi_rag_tpu``, or the JAX package's root ``bench.py`` and ``scripts/``
+  (an AST scan, so lazy imports inside functions and ``import_module``
+  calls count too); the port's shell drivers call the port's CLI and never
+  the JAX one.
 * ``pyarrow``, ``transformers``, ``safetensors``, ``tiktoken``, ``openai``
   and ``vllm`` (absent on the card's machine, or optional backends) are
   imported only inside the functions that need them.
@@ -19,7 +21,9 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "evi_rag_tpu")
+# The root ``bench`` and ``scripts`` modules are the JAX package's tools:
+# the port keeps its own (``evi_rag_tpu_torch.bench``, ``evi_rag_tpu_torch.scripts``).
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "evi_rag_tpu", "bench", "scripts")
 LAZY = ("pyarrow", "transformers", "safetensors", "tiktoken", "openai", "vllm")
 
 
@@ -32,7 +36,8 @@ def _port_files():
 def test_scan_covers_the_port_scripts():
     scanned = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     assert {"evi_rag_tpu_torch/scripts/__init__.py", "evi_rag_tpu_torch/scripts/benchmark_quality.py",
-            "evi_rag_tpu_torch/scripts/quality_gate.py"} <= scanned
+            "evi_rag_tpu_torch/scripts/quality_gate.py", "evi_rag_tpu_torch/scripts/profile_gfn_step.py",
+            "evi_rag_tpu_torch/scripts/measure_fused_crossover.py", "evi_rag_tpu_torch/bench.py"} <= scanned
 
 
 @pytest.mark.parametrize("name", ["run_full_pipeline.sh", "run_retriever_mask_ablation.sh"])
@@ -49,7 +54,8 @@ def _imported_modules(path: pathlib.Path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
             yield node.module
-        elif isinstance(node, ast.Call) and getattr(node.func, "id", None) == "__import__":
+        elif isinstance(node, ast.Call) and (getattr(node.func, "id", None) == "__import__"
+                                             or getattr(node.func, "attr", None) == "import_module"):
             if node.args and isinstance(node.args[0], ast.Constant):
                 yield str(node.args[0].value)
 
@@ -212,6 +218,35 @@ def test_quality_entry_points_raise_without_gpu(monkeypatch):
         quality_gate.quality_gate()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         benchmark_quality.run(samples=16, epochs=1)
+
+
+def test_bench_entry_points_raise_without_gpu(monkeypatch):
+    """The port's bench, its sections, the GFlowNet profiler and the
+    crossover sweep run on the card unless the CPU is named."""
+    from evi_rag_tpu_torch import bench
+    from evi_rag_tpu_torch.scripts import measure_fused_crossover, profile_gfn_step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    bundle = bench.make_bundle(8, 8, 4)
+    calls = {
+        "run_cli": lambda: bench.run_cli([]),
+        "main": lambda: bench.main({}),
+        "build_inputs_device": lambda: bench.build_inputs_device(4, 8, 4, 2),
+        "bench_query": lambda: bench.bench_query(bundle, bench.build_inputs(4, 8, 4, 2), k=2, chunk=4),
+        "bench_index_build": lambda: bench.bench_index_build(8, 4, 2, 4),
+        "bench_knn": lambda: bench.bench_knn(8, 4, 2, 2),
+        "bench_train_step": lambda: bench.bench_train_step(samples=2, dim=8),
+        "bench_gflownet_step": lambda: bench.bench_gflownet_step(graphs=2, dim=8),
+        "bench_gflownet_step_wide": lambda: bench.bench_gflownet_step_wide(2, dim=8),
+        "bench_serve_surface": lambda: bench.bench_serve_surface(2, 8, 2),
+        "profile_gfn_step._build": lambda: profile_gfn_step._build(2, emb=8),
+        "profile_gfn_step.main": lambda: profile_gfn_step.main([]),
+        "measure_fused_crossover.main": lambda: measure_fused_crossover.main(dim=8, widths=(8,)),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+            pytest.fail(name)
 
 
 @pytest.mark.parametrize("knob", ["sample_then_score", "remat_dots", "stacked"])
