@@ -23,7 +23,9 @@ in the sources for each design and bound.
 
 * A wrapper launches its kernel for CUDA tensors and counts the launch in
   ``<wrapper>.launches`` (``query_topk_per_query`` counts through
-  ``score_bidirectional``).  For CPU tensors it returns the plain version
+  ``score_bidirectional``).  ``per_question_topk``'s launches sit in a
+  ``kernel.per_question_topk`` span while tracing is on
+  (``utils/profiling.py``).  For CPU tensors it returns the plain version
   and counts nothing; any other device raises.  There is no fallback from
   a kernel to its plain version.
 * The kernels take D % 64 == 0, D <= 1024, H % 8 == 0, H <= 1024, an even
@@ -56,6 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from evi_rag_tpu_torch.ops.nnfn import dense, layernorm, projector
+from evi_rag_tpu_torch.utils import profiling
 from evi_rag_tpu_torch.utils.extras import check_kernel_outputs, nan_checks_enabled
 
 KERNEL_SOURCE = "per_question_topk.cu"
@@ -631,14 +634,15 @@ def per_question_topk(
     chunks = _question_chunks(g_n, m_tiles, scratch_bytes_per_edge(d, h_dim, False))
     sc = torch.empty(((chunks[0][1] - chunks[0][0]) * m_tiles, 2, d), dtype=bf16, device=dev)
     nav = torch.empty(((chunks[0][1] - chunks[0][0]) * m, 2), dtype=torch.float32, device=dev)
-    for g0, g1 in chunks:
-        _launch(
-            KERNEL_SOURCE, "pqt_forward", "per_question_topk", dev,
-            _ptr(lengths, g0), _ptr(head_repr, g0 * m * d), _ptr(rel_repr, g0 * m * d),
-            _ptr(tail_repr, g0 * m * d), _ptr(struct_raw, g0 * m * s), _ptr(gate, g0 * d), _ptr(bias, g0 * d),
-            *_weight_args(w), _ptr(sc), _ptr(nav), _ptr(scores, g0 * m), _ptr(vals, g0 * k), _ptr(ids, g0 * k),
-            g1 - g0, m, d, h_dim, s, k, PQT_CLUSTERS, _stream(dev),
-        )
+    with profiling.span("kernel.per_question_topk"):  # a ctypes call is no aten op: its host time shows here
+        for g0, g1 in chunks:
+            _launch(
+                KERNEL_SOURCE, "pqt_forward", "per_question_topk", dev,
+                _ptr(lengths, g0), _ptr(head_repr, g0 * m * d), _ptr(rel_repr, g0 * m * d),
+                _ptr(tail_repr, g0 * m * d), _ptr(struct_raw, g0 * m * s), _ptr(gate, g0 * d), _ptr(bias, g0 * d),
+                *_weight_args(w), _ptr(sc), _ptr(nav), _ptr(scores, g0 * m), _ptr(vals, g0 * k), _ptr(ids, g0 * k),
+                g1 - g0, m, d, h_dim, s, k, PQT_CLUSTERS, _stream(dev),
+            )
     per_question_topk.launches += 1
     if nan_checks_enabled():  # the scores of each question's prefix too: a NaN may rank below -inf
         valid = torch.arange(m, device=dev)[None, :] < lengths[:, None]

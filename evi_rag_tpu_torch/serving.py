@@ -34,6 +34,19 @@ Feeds go up from pinned host memory with ``non_blocking`` copies; each
 window's results come back the same way while the next window is dispatched.
 Under bf16 compute the scores come back rounded to bf16 (and widened to
 f32), as the JAX engine returns them; f32 requests return exact f32 scores.
+
+Tracing (``utils/profiling.py``; on exactly while a ``torch.profiler``
+session records, and free of cost but one check per span while off): each
+``serve_split`` call is one call id; its spans are ``serve.setup`` (entry to
+replicas ready), ``serve.warmup``, ``serve.plan`` (sort, groups, windows),
+per window ``serve.pack``, ``serve.stage`` and ``serve.drain``, per chunk
+``serve.dispatch`` (the warm-up's too), and ``serve.wait`` around each host
+wait on the card (the set-up's and warm-up's syncs, the drain's event).
+Counters, per route (``kernel`` for kernel 3, ``plain`` for the plain
+scorer): ``serve.edges.<route>`` (real edges) and ``serve.slots.<route>``
+(group size x m_pad as dispatched), whose ratio is the share of dispatched
+slots that hold an edge.  ``profiling.trace(dir)`` writes them to
+``dir/spans.json``.  ``ServeStats`` keeps its own timers.
 """
 
 from __future__ import annotations
@@ -52,6 +65,7 @@ from evi_rag_tpu_torch.ops.nnfn import projector as _projector, tree_to
 from evi_rag_tpu_torch.ops.query import query_topk_per_question
 from evi_rag_tpu_torch.ops.score_kernels import kernel_limit, per_question_topk, prep_weights
 from evi_rag_tpu_torch.parallel.mesh import Mesh, per_device
+from evi_rag_tpu_torch.utils import profiling
 from evi_rag_tpu_torch.utils.device import resolve_device
 from evi_rag_tpu_torch.utils.logging import get_logger
 
@@ -60,7 +74,8 @@ log = get_logger(__name__)
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        with profiling.span("serve.wait"):
+            torch.cuda.synchronize(device)
 
 
 @torch.inference_mode()
@@ -223,6 +238,7 @@ def bucket_width(group: Sequence[RetrievalSample], k: int) -> int:
 
 
 @torch.inference_mode()
+@profiling.one_call
 def serve_split(
     bundle: dict[str, Any],
     samples: Sequence[RetrievalSample],
@@ -252,40 +268,40 @@ def serve_split(
     Runs on ``device`` (cuda unless ``"cpu"`` is asked for), or, with
     ``mesh``, data-parallel over its devices with the results on the first.
     """
-    if mesh is None:
-        mesh = Mesh((resolve_device(device),))
-    devices = mesh.devices
-    group_size = -(-group_size // len(devices)) * len(devices)
-    dev = devices[0]
-    on_cuda = dev.type == "cuda"
-    t0 = time.perf_counter()
-    feats = tree_to(bundle["features"], dev)
-    bundle = {**bundle, "features": feats}
-    if projected is None:
-        projected = project_tables(bundle, entity_emb, relation_emb, device=dev)
-    kernel_path = dtype == torch.bfloat16
-    # The kernel's shape limits hold per model and k, so one check serves
-    # every bucket of the call.
-    fault = kernel_limit(feats["q_gate"]["kernel"].shape[0], feats["state_net_0"]["kernel"].shape[-1],
-                         feats["struct_proj"]["kernel"].shape[0], k)
-    routed_away = False
+    with profiling.span("serve.setup"):
+        if mesh is None:
+            mesh = Mesh((resolve_device(device),))
+        devices = mesh.devices
+        group_size = -(-group_size // len(devices)) * len(devices)
+        dev = devices[0]
+        on_cuda = dev.type == "cuda"
+        t0 = time.perf_counter()
+        feats = tree_to(bundle["features"], dev)
+        bundle = {**bundle, "features": feats}
+        if projected is None:
+            projected = project_tables(bundle, entity_emb, relation_emb, device=dev)
+        kernel_path = dtype == torch.bfloat16
+        # The kernel's shape limits hold per model and k, so one check serves
+        # every bucket of the call.
+        fault = kernel_limit(feats["q_gate"]["kernel"].shape[0], feats["state_net_0"]["kernel"].shape[-1],
+                             feats["struct_proj"]["kernel"].shape[0], k)
+        routed_away = False
 
-    def replica(d: torch.device) -> dict[str, Any]:
-        """The tables, question embeddings and weights on device ``d``."""
-        f = tree_to(feats, d)
-        ent_t, rel_t = (torch.as_tensor(x, dtype=torch.float32).to(d) for x in projected)
-        out = dict(bundle={**bundle, "features": f}, ent=ent_t, rel=rel_t,
-                   q=torch.as_tensor(np.asarray(question_emb, dtype=np.float32)).to(d),
-                   weights=prep_weights(f) if kernel_path else None,
-                   ent_k=ent_t.to(torch.bfloat16) if kernel_path else None,
-                   rel_k=rel_t.to(torch.bfloat16) if kernel_path else None)
-        _sync(d)
-        return out
+        def replica(d: torch.device) -> dict[str, Any]:
+            """The tables, question embeddings and weights on device ``d``."""
+            f = tree_to(feats, d)
+            ent_t, rel_t = (torch.as_tensor(x, dtype=torch.float32).to(d) for x in projected)
+            out = dict(bundle={**bundle, "features": f}, ent=ent_t, rel=rel_t,
+                       q=torch.as_tensor(np.asarray(question_emb, dtype=np.float32)).to(d),
+                       weights=prep_weights(f) if kernel_path else None,
+                       ent_k=ent_t.to(torch.bfloat16) if kernel_path else None,
+                       rel_k=rel_t.to(torch.bfloat16) if kernel_path else None)
+            _sync(d)
+            return out
 
-    replicas = per_device(mesh, replica)
-    index_build_s = time.perf_counter() - t0
+        replicas = per_device(mesh, replica)
+        index_build_s = time.perf_counter() - t0
 
-    order = sorted(range(len(samples)), key=lambda i: samples[i].edge_index.shape[1])
     results: list[ServeResult | None] = [None] * len(samples)
 
     def drain(idxs, group, vals_np, ids_np) -> None:
@@ -328,31 +344,33 @@ def serve_split(
     # Group boundaries + padded shapes first, then cut windows greedily where
     # the staged-feed estimate would exceed the byte budget.  One shape axis:
     # n_pad rides the edge ladder (n_pad = m_pad >= nodes + 1).
-    group_recs = []
-    for g0 in range(0, len(order), group_size):
-        idxs = order[g0 : g0 + group_size]
-        group = [samples[i] for i in idxs]
-        m_pad = n_pad = bucket_width(group, k)
-        bytes_est = group_size * (
-            3 * m_pad * 4            # eidx [2, m_pad] + rel_ids, int32
-            + n_pad * 4 + n_pad      # node_rows + topic
-        )
-        group_recs.append((idxs, group, (m_pad, n_pad), bytes_est))
-    windows: list[list[tuple]] = []
-    cur: list[tuple] = []
-    cur_bytes = cur_samples = 0
-    for rec in group_recs:
-        if cur and (
-            cur_bytes + rec[3] > byte_budget
-            or cur_samples + group_size > max_window_samples
-        ):
+    with profiling.span("serve.plan"):
+        order = sorted(range(len(samples)), key=lambda i: samples[i].edge_index.shape[1])
+        group_recs = []
+        for g0 in range(0, len(order), group_size):
+            idxs = order[g0 : g0 + group_size]
+            group = [samples[i] for i in idxs]
+            m_pad = n_pad = bucket_width(group, k)
+            bytes_est = group_size * (
+                3 * m_pad * 4            # eidx [2, m_pad] + rel_ids, int32
+                + n_pad * 4 + n_pad      # node_rows + topic
+            )
+            group_recs.append((idxs, group, (m_pad, n_pad), bytes_est))
+        windows: list[list[tuple]] = []
+        cur: list[tuple] = []
+        cur_bytes = cur_samples = 0
+        for rec in group_recs:
+            if cur and (
+                cur_bytes + rec[3] > byte_budget
+                or cur_samples + group_size > max_window_samples
+            ):
+                windows.append(cur)
+                cur, cur_bytes, cur_samples = [], 0, 0
+            cur.append(rec)
+            cur_bytes += rec[3]
+            cur_samples += group_size
+        if cur:
             windows.append(cur)
-            cur, cur_bytes, cur_samples = [], 0, 0
-        cur.append(rec)
-        cur_bytes += rec[3]
-        cur_samples += group_size
-    if cur:
-        windows.append(cur)
 
     # Dispatch-width ladder: full chunks of B_LARGE groups, then B_SMALL
     # chunks, then one final chunk of the remainder.
@@ -389,6 +407,7 @@ def serve_split(
             return t.pin_memory().to(d, non_blocking=True)
         return t
 
+    @profiling.spanned("serve.dispatch")
     def _dispatch(key: tuple, chunk: list[dict]) -> tuple[torch.Tensor, torch.Tensor]:
         """``serve_window`` for the chunk's groups (no padding: the groups
         are served one after another), each group's questions split over the
@@ -420,15 +439,17 @@ def serve_split(
     do_warmup = on_cuda if warmup is None else warmup
     compile_s = 0.0
     if do_warmup and windows:
-        tw = time.perf_counter()
-        keys = sorted({key for win in windows for _, _, key, _ in win})
-        key = next((kk for kk in keys if _use_fused(kk[0])), keys[0])
-        _dispatch(key, [pack_group_compact([], group_size, *key)])
-        for d in set(devices):
-            _sync(d)
-        compile_s = time.perf_counter() - tw
+        with profiling.span("serve.warmup"):
+            tw = time.perf_counter()
+            keys = sorted({key for win in windows for _, _, key, _ in win})
+            key = next((kk for kk in keys if _use_fused(kk[0])), keys[0])
+            _dispatch(key, [pack_group_compact([], group_size, *key)])
+            for d in set(devices):
+                _sync(d)
+            compile_s = time.perf_counter() - tw
     t1 = time.perf_counter()
 
+    @profiling.spanned("serve.stage")
     def stage_window(pend):
         """Concatenate a window's results and start their copy to the host.
         Under bf16 compute the scores ship rounded to bf16, as the JAX engine
@@ -448,12 +469,14 @@ def serve_split(
         done.record(torch.cuda.current_stream(dev))
         return meta, vals_h, ids_h, done
 
+    @profiling.spanned("serve.drain")
     def drain_window(staged) -> None:
         nonlocal drain_s
         t2 = time.perf_counter()
         meta, vals_h, ids_h, done = staged
         if done is not None:
-            done.synchronize()
+            with profiling.span("serve.wait"):
+                done.synchronize()
         all_v = vals_h.float().numpy()
         all_i = ids_h.numpy()
         row = 0
@@ -470,14 +493,19 @@ def serve_split(
         tp = time.perf_counter()
         packed: dict[tuple, list[dict]] = {}
         metas: dict[tuple, list[tuple]] = {}
-        for idxs, group, key, _ in win_groups:
-            packed.setdefault(key, []).append(pack_group_compact(group, group_size, *key))
-            metas.setdefault(key, []).append((idxs, group))
+        with profiling.span("serve.pack"):
+            for idxs, group, key, _ in win_groups:
+                packed.setdefault(key, []).append(pack_group_compact(group, group_size, *key))
+                metas.setdefault(key, []).append((idxs, group))
         pack_s += time.perf_counter() - tp
 
         td = time.perf_counter()
         pend = []
         for key, lst in packed.items():
+            if profiling.enabled():
+                route = "kernel" if _use_fused(key[0]) else "plain"
+                profiling.count(f"serve.edges.{route}", sum(int(a["lengths"].sum()) for a in lst))
+                profiling.count(f"serve.slots.{route}", len(lst) * group_size * key[0])
             c0 = 0
             for b_cap in _chunk_plan(len(lst)):
                 chunk = lst[c0 : c0 + b_cap]

@@ -16,7 +16,11 @@ Counterpart of ``evi_rag_tpu/train/retriever_trainer.py``:
   own, so the generators stay in step.  ``remat`` recomputes the forward
   in the backward (``torch.utils.checkpoint``); the random draws are made
   *outside* the checkpointed function, because a recompute would otherwise
-  draw other masks from the explicit generator.
+  draw other masks from the explicit generator.  While a ``torch.profiler``
+  session records, each step is one call of ``utils/profiling.py``'s
+  registry with three spans: ``train.upload`` (``batch_to`` and the id
+  feed's lookup), ``train.forward_backward`` and ``train.optimizer`` (the
+  update, the parameter add, ``grad_norm``).
 * ``make_eval_step`` computes the full per-graph metric suite and the
   FeatureMonitor terms on the device.
 * ``fit`` drives epochs with the reference's model selection: a monitored
@@ -55,6 +59,7 @@ from evi_rag_tpu_torch.ops.graph import batch_to
 from evi_rag_tpu_torch.parallel.multihost import all_reduce_mean, owned_shards, world_size
 from evi_rag_tpu_torch.train.checkpoint import flatten_tree, load_checkpoint, unflatten_tree
 from evi_rag_tpu_torch.train.optim import Optimizer, OptimizerConfig, setup_optimizer
+from evi_rag_tpu_torch.utils import profiling
 from evi_rag_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger(__name__)
@@ -209,18 +214,23 @@ def make_train_step(
     components and metrics).  Under a process group of ranks the step is
     data-parallel: see ``sharded_grads``."""
 
+    @profiling.one_call
     def step(state: TrainState, stacked: RetrieverBatch):
         dev = _model_device(model)
-        stacked = materialize_retriever_batch(batch_to(stacked, dev), tables)
-        loss, metrics, grads = loss_and_grads(model, cfg, stacked, generator=state.generator)
-        params = flatten_tree(state.params)
-        updates, opt_state = tx.update(grads, state.opt_state, params)
-        with torch.no_grad():
-            for path, u in updates.items():
-                params[path].add_(u)
+        with profiling.span("train.upload"):
+            stacked = materialize_retriever_batch(batch_to(stacked, dev), tables)
+        with profiling.span("train.forward_backward"):
+            loss, metrics, grads = loss_and_grads(model, cfg, stacked, generator=state.generator)
+        with profiling.span("train.optimizer"):
+            params = flatten_tree(state.params)
+            updates, opt_state = tx.update(grads, state.opt_state, params)
+            with torch.no_grad():
+                for path, u in updates.items():
+                    params[path].add_(u)
+            grad_norm = torch.sqrt(sum((g.float() * g.float()).sum() for g in grads.values()))
         metrics = dict(metrics)
         metrics["loss"] = loss
-        metrics["grad_norm"] = torch.sqrt(sum((g.float() * g.float()).sum() for g in grads.values()))
+        metrics["grad_norm"] = grad_norm
         return TrainState(params=state.params, opt_state=opt_state, step=state.step + 1,
                           generator=state.generator), metrics
 
