@@ -2818,7 +2818,8 @@ def phase_crossover(smi: str) -> list:
 
 def wgmma_ptxas(sources) -> list[str]:
     """The ptxas report (registers, spills) of each wgmma kernel of
-    ``sources``, with its dynamic shared memory (the same for every mode)."""
+    ``sources``, with its dynamic shared memory (wg_kernel's modes share
+    one size; kernel 2's pooled pass, wg_kernel_pooled, has its own)."""
     from evi_rag_tpu_torch.ops import _build, score_kernels as sk
 
     smem = sk._lib(sk.SCORE_SOURCE).sb_wg_smem_bytes()
@@ -2827,23 +2828,29 @@ def wgmma_ptxas(sources) -> list[str]:
         lines = _build.BUILD_LOG.get(source, "").splitlines()
         for i, ln in enumerate(lines):
             if "Compiling entry" in ln and "wg_kernel" in ln:
-                mode = ln.split("wg_kernelILi")[1][0]
+                if "wg_kernelILi" in ln:
+                    name, size = f"wg_kernel<{ln.split('wg_kernelILi')[1][0]}>", smem
+                else:
+                    name, size = "wg_kernel_pooled", sk._lib(sk.POOLED_SOURCE).pq_smem_bytes()
                 report = " ".join(x.strip() for x in lines[i + 1:i + 4]
                                   if "spill" in x or "registers" in x)
-                out.append(f"{source} wg_kernel<{mode}>: {report}; dynamic smem {smem} B")
+                out.append(f"{source} {name}: {report}; dynamic smem {size} B")
     return out
 
 
 ABLATIONS = {"full": [], "no_epilogue": ["-DWG_NO_EPI"], "no_wgmma": ["-DWG_NO_MMA"],
              "no_row_build": ["-DWG_NO_BUILD"]}
-# Built for the per-question kernel only: its GELU priced, and the clock64 trace.
+# Built for one source only: kernel 3's GELU priced, and the clock64 trace of kernels 3 and 2.
 PQT_VARIANTS = {"gelu_identity": ["-DWG_GELU_ID"], "trace": ["-DWG_TRACE"]}
+POOLED_VARIANTS = {"trace": ["-DWG_TRACE"]}
+TRACE_STEPS, TRACE_ITEMS, TRACE_EPI = 512, 16, 8  # g_wg_trace: [step][8] marks, then [item][TRACE_EPI]
 
 
 def phase_ablation(m: int) -> None:
     """Each wgmma kernel built with each ablation switch, timed in turns: the
     pooled ones at B = POOLED_B over m random candidates, the per-question
-    one at G = 16, M = REPORT_M (phase 3's input)."""
+    one at G = 16, M = REPORT_M (phase 3's input); then the clock64 trace of
+    kernel 2's and kernel 3's first CTA."""
     import ctypes
 
     import numpy as np
@@ -2858,6 +2865,7 @@ def phase_ablation(m: int) -> None:
     procs = {}
     variants = [(source, name, flags) for source in sk.KERNEL_SOURCES for name, flags in ABLATIONS.items()]
     variants += [(sk.KERNEL_SOURCE, name, flags) for name, flags in PQT_VARIANTS.items()]
+    variants += [(sk.POOLED_SOURCE, name, flags) for name, flags in POOLED_VARIANTS.items()]
     for source, name, flags in variants:
         lib = out / f"{source}.{name}.so"
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-o", str(lib), str(_build.CSRC / source)]
@@ -2867,6 +2875,22 @@ def phase_ablation(m: int) -> None:
         log_text = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc {source} {name}:\n{log_text}")
+        if name == "full":
+            for ln in log_text.splitlines():
+                if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+                    log(f"[ablation] ptxas {source}: {ln.strip()}")
+    load = lambda source, name: sk.type_entries(ctypes.CDLL(str(procs[source, name][0])), source)
+
+    def read_trace(lib, fn):
+        fn()
+        fn()
+        torch.cuda.synchronize()
+        marks = np.zeros(TRACE_STEPS * 8 + TRACE_ITEMS * TRACE_EPI, np.int64)
+        lib.wg_trace_read.argtypes = [ctypes.c_void_p]
+        if lib.wg_trace_read(marks.ctypes.data):
+            raise RuntimeError("reading the trace failed")
+        return marks
+
     dev = torch.device("cuda")
     bundle = {"features": bundle_from_numpy(make_bundle(D, H, S, seed=11)["features"], device=dev)}
     w = sk.prep_weights(bundle["features"])
@@ -2875,11 +2899,16 @@ def phase_ablation(m: int) -> None:
     rows.append(torch.randn(m, S, device=dev, generator=gen).to(torch.bfloat16))
     q = torch.randn(POOLED_B, D, device=dev, generator=gen)
     for source, entry, fused in ((sk.SCORE_SOURCE, "sb_forward", False), (sk.POOLED_SOURCE, "pq_forward", True)):
+        pooled = lambda: sk._pooled_scores(source, entry, "ablation", bundle, q, rows, w, fused=fused)
         for name in ABLATIONS:
-            sk._LIBS[source] = sk.type_entries(ctypes.CDLL(str(procs[source, name][0])), source)
-            ms = cuda_ms(lambda: sk._pooled_scores(source, entry, "ablation", bundle, q, rows, w, fused=fused), 2)
+            sk._LIBS[source] = load(source, name)
+            ms = cuda_ms(pooled, 2)
             log(f"[ablation] {source} {name}: {ms:.3f} ms at B = {POOLED_B}, M = {m}; "
                 f"{ms * POOLED_M / m:.1f} ms scaled to M = {POOLED_M}")
+        if source == sk.POOLED_SOURCE:
+            sk._LIBS[source] = lib = load(source, "trace")
+            report_trace(read_trace(lib, pooled), "kernel 2", ("u, r_ctx",), D // 64, "pooled_trace.json",
+                         POOLED_EPI_PARTS)
         sk._LIBS.pop(source)
     del rows, q
 
@@ -2898,8 +2927,7 @@ def phase_ablation(m: int) -> None:
     live_tiles = int(sum(-(-min(int(n), REPORT_M) // 128) for n in lens))
     pqt = lambda: sk.per_question_topk(*args, k=K, weights=w)
     for name in [*ABLATIONS, *(v for v in PQT_VARIANTS if v != "trace")]:
-        sk._LIBS[sk.KERNEL_SOURCE] = sk.type_entries(ctypes.CDLL(str(procs[sk.KERNEL_SOURCE, name][0])),
-                                                     sk.KERNEL_SOURCE)
+        sk._LIBS[sk.KERNEL_SOURCE] = load(sk.KERNEL_SOURCE, name)
         ms = cuda_ms(pqt, 20)
         log(f"[ablation] {sk.KERNEL_SOURCE} {name}: {ms:.4f} ms at G = {G}, M = {REPORT_M} "
             f"({live_tiles} live tiles of 128 edges)")
@@ -2918,48 +2946,53 @@ def phase_ablation(m: int) -> None:
             f"(persistent clusters {ms:.4f} ms); bitwise the same output")
         for kname, kms in launch_device_ms(pqt, 10).items():
             log(f"[ablation] {sk.KERNEL_SOURCE} full, device ms per call: {kms:.4f}  {kname[:80]}")
-    lib = sk.type_entries(ctypes.CDLL(str(procs[sk.KERNEL_SOURCE, "trace"][0])), sk.KERNEL_SOURCE)
-    sk._LIBS[sk.KERNEL_SOURCE] = lib
-    pqt()
-    pqt()
-    torch.cuda.synchronize()
-    marks = np.zeros(512 * 8 + 16 * 4, np.int64)
-    lib.wg_trace_read.argtypes = [ctypes.c_void_p]
-    if lib.wg_trace_read(marks.ctypes.data):
-        raise RuntimeError("reading the trace failed")
-    report_trace(marks, D // 64)
+    sk._LIBS[sk.KERNEL_SOURCE] = lib = load(sk.KERNEL_SOURCE, "trace")
+    report_trace(read_trace(lib, pqt), "kernel 3", ("inter", "struct", "err"), D // 64, "pqt_trace.json",
+                 EPI_PARTS)
     sk._LIBS.pop(sk.KERNEL_SOURCE)
 
 
-def report_trace(marks, kc: int) -> None:
+# Epilogue parts between consecutive marks of an item (WG_TRACE): wg_kernel's, and
+# wg_kernel_pooled's (pooled_query.cu).
+EPI_PARTS = ("z + c read", "exchange 1", "LN var", "exchange 2", "GELU, head", "exchange 3", "score write")
+POOLED_EPI_PARTS = ("z (c from shared memory), local mean and M2", "exchange (mean, M2)", "Chan merge, free",
+                    "GELU, head", "head push", "head wait", "score write")
+
+
+def report_trace(marks, label: str, kinds, kc: int, name: str, epi_parts) -> None:
     """Where the first CTA's clock64 marks (WG_TRACE) say its steps and
-    epilogues spend their cycles: per step kind (inter, struct, err) the
-    median of each wait, and per work item the epilogue's exchanges."""
+    epilogues spend their cycles: per step kind (``kinds``, ``kc`` steps
+    each, in turn) the median of each wait, and per work item each part of
+    the epilogue (``epi_parts``) and the cycles from one item's epilogue
+    start to the next's."""
     import numpy as np
 
-    steps = marks[: 512 * 8].reshape(512, 8)
+    steps = marks[: TRACE_STEPS * 8].reshape(TRACE_STEPS, 8)
     n = int((steps[:, 4] > 0).sum())
     steps = steps[:n].astype(np.float64)
-    epi = marks[512 * 8:].reshape(16, 4).astype(np.float64)
-    epi = epi[epi[:, 3] > 0]
+    epi = marks[TRACE_STEPS * 8:].reshape(TRACE_ITEMS, TRACE_EPI).astype(np.float64)
+    epi = epi[epi[:, -1] > 0]
     names = {"consumer W1 wait": (0, 1), "consumer A wait": (1, 2), "consumer wgmma": (2, 3),
              "consumer release+refill": (3, 4), "builder empty wait": (5, 6), "builder build+push": (6, 7)}
-    kind = (np.arange(n) % (3 * kc)) // kc
+    kind = (np.arange(n) % (len(kinds) * kc)) // kc
     out = {"steps": n, "items": len(epi), "cycles": float(steps[-1, 4] - steps[0, 0])}
-    for k, label in enumerate(("inter", "struct", "err")):
+    for k, kname in enumerate(kinds):
         sel = steps[kind == k]
         step_len = np.diff(steps[:, 0])[kind[:-1] == k]
-        row = {name: float(np.median(sel[:, b] - sel[:, a])) for name, (a, b) in names.items()}
+        row = {key: float(np.median(sel[:, b] - sel[:, a])) for key, (a, b) in names.items()}
         row["step"] = float(np.median(step_len))
-        out[label] = row
-        log(f"[trace] {label} steps: median cycles " + ", ".join(f"{k2} {v:.0f}" for k2, v in row.items()))
+        out[kname] = row
+        log(f"[trace] {label} {kname} steps: median cycles " + ", ".join(f"{k2} {v:.0f}" for k2, v in row.items()))
     if len(epi):
-        parts = {"z + exchange 1": np.median(epi[:, 1] - epi[:, 0]), "LN var + exchange 2": np.median(epi[:, 2] - epi[:, 1]),
-                 "GELU, head + exchange 3": np.median(epi[:, 3] - epi[:, 2])}
-        out["epilogue"] = {k2: float(v) for k2, v in parts.items()}
-        log("[trace] epilogue per item: median cycles " + ", ".join(f"{k2} {v:.0f}" for k2, v in parts.items()))
-    log(f"[trace] first CTA: {n} steps, {len(epi)} items, {out['cycles']:.0f} cycles in the mainloop and epilogues")
-    (OUT_DIR / "pqt_trace.json").write_text(json.dumps({"summary": out, "marks": marks.tolist()}))
+        parts = {p: float(np.median(epi[:, i + 1] - epi[:, i])) for i, p in enumerate(epi_parts)}
+        parts["epilogue"] = float(np.median(epi[:, -1] - epi[:, 0]))
+        if len(epi) > 1:
+            parts["epilogue start to start"] = float(np.median(np.diff(epi[:, 0])))
+        out["epilogue"] = parts
+        log(f"[trace] {label} epilogue per item: median cycles " + ", ".join(f"{k2} {v:.0f}" for k2, v in parts.items()))
+    log(f"[trace] {label} first CTA: {n} steps, {len(epi)} items, {out['cycles']:.0f} cycles in the mainloop and "
+        "epilogues")
+    (OUT_DIR / name).write_text(json.dumps({"summary": out, "marks": marks.tolist()}))
 
 
 def launch_device_ms(fn, calls: int) -> dict[str, float]:

@@ -2,7 +2,9 @@
 // per_question_topk.cu, score_bidirectional.cu and pooled_query.cu: a wgmma
 // mainloop fed with pre-swizzled W1 tiles by bulk async copies, A rows built
 // once per cluster and pushed to every CTA of it, and an epilogue that runs
-// LayerNorm over H across the cluster.
+// LayerNorm over H across the cluster.  wg_kernel runs kScore, kEdge and
+// kQuestion; kernel 2's pooled pass (kPooled) has a kernel of its own in
+// pooled_query.cu (wg_kernel_pooled) built from the primitives here.
 //
 // The functions (what each mode computes) are those of twin_score.cuh's
 // header note; only the schedule differs.
@@ -34,8 +36,7 @@
 //     bulk copy per peer and accumulator was slower on the H100.)
 //   * Rows per W1 byte fetched from L2: 256 in kScore (each tile meets the
 //     fwd and bwd rows of 128 edges) and kEdge ([sc_f|hmt] and [sc_b|-hmt]
-//     rows); 128 in kPooled (u rows against the W1i tile, r_ctx rows against
-//     the W1e tile).
+//     rows).
 //
 // Modes (one launch each):
 //   kScore  (score_bidirectional.cu): acc0 = [inter_f|sc_f|err_f] @ W1[:3D],
@@ -52,11 +53,11 @@
 //   kEdge   (pooled_query.cu, per candidate): acc0 = sc_f @ W1s + hmt @ W1e,
 //           acc1 = sc_b @ W1s - hmt @ W1e; epilogue c_{f,b} = acc + b1 ->
 //           scratch [M, 2, H] f32.
-//   kPooled (pooled_query.cu, per query): acc0 = zi = u @ W1i, acc1 = zr =
-//           r_ctx @ W1e; epilogue z_{f,b} = nav_{f,b}*zi + zr + c_{f,b} +
-//           dist_{f,b}*w1d, then as kScore.
+//   kPooled (pooled_query.cu's wg_kernel_pooled, per query): zi = u @ W1i,
+//           zr = r_ctx @ W1e; the rows, W1 tile order and err sums below
+//           (tile_chunk, load_units, build_units) are its.
 //
-// Work items.  kScore and kPooled: a cluster walks up to kQueriesPerCta
+// Work items.  kScore: a cluster walks up to kQueriesPerCta
 // queries over one tile (grid (cH, query groups, tiles)).  kEdge: one tile.
 // kQuestion: the live tiles (question g, tile j with 128 j < min(len[g], M))
 // of all G questions, in (g, j) order, are cut into one contiguous range per
@@ -75,12 +76,15 @@
 // score.
 //
 // Ablation switches (compile-time, for measurement only; the scores are then
-// wrong): WG_NO_MMA issues no wgmma, WG_NO_EPI skips the epilogue,
+// wrong), in wg_kernel and pooled_query.cu's wg_kernel_pooled: WG_NO_MMA
+// issues no wgmma, WG_NO_EPI skips the epilogue,
 // WG_NO_BUILD has the builders push zero rows without loading or computing
 // them.
 // WG_GELU_ID replaces the epilogue's GELU by the identity.
 // WG_TRACE records clock64 marks of the first CTA's steps (consumer thread
-// 0 and builder thread 0) and epilogues into g_wg_trace (wg_trace_read).
+// 0 and builder thread 0; in wg_kernel_pooled the thread 0 of the step's
+// consumer warpgroup and of each builder half) and epilogues into
+// g_wg_trace (wg_trace_read).
 // `python3 chip_smoke.py --ablation` builds and times them.
 
 #pragma once
@@ -104,7 +108,7 @@ constexpr int kConsumers = 256;
 constexpr int kBuilders = 128;                        // warps 8-11
 constexpr int kWgThreads = kConsumers + kBuilders;
 constexpr int kMaxCluster = kMaxH / kSliceN;          // 8
-constexpr int kQueriesPerCta = 8;                     // queries one CTA walks (kScore, kPooled)
+constexpr int kQueriesPerCta = 8;                     // queries one CTA walks (kScore)
 constexpr int kMaxItems = 256;                        // work items one kQuestion cluster walks
 
 enum WgMode { kScore = 0, kEdge = 1, kPooled = 2, kQuestion = 3 };
@@ -156,8 +160,11 @@ constexpr size_t kWgSmemBytes = kSmemEnd + 1024;                   // + alignmen
 
 #ifdef WG_TRACE
 constexpr int kTraceSteps = 512, kTraceItems = 16;
-constexpr int kTraceEpi = kTraceSteps * 8;  // [step][8] marks, then [item][4] epilogue marks
-__device__ long long g_wg_trace[kTraceEpi + kTraceItems * 4];
+// [step][8] marks, then [item][8] epilogue marks (wg_kernel: start, before
+// and after each of the three exchanges, the score written; wg_kernel_pooled
+// marks its own epilogue's parts, pooled_query.cu).
+constexpr int kTraceEpi = kTraceSteps * 8;
+__device__ long long g_wg_trace[kTraceEpi + kTraceItems * 8];
 #define WG_MARK(on, idx) \
   do {                   \
     if (on) g_wg_trace[idx] = clock64(); \
@@ -468,6 +475,7 @@ __device__ int question_items(const WgArgs& p, int cid, int nclu, int2* items, i
 
 template <int kMode>
 __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
+  static_assert(kMode != kPooled, "kPooled runs in wg_kernel_pooled (pooled_query.cu)");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -493,9 +501,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
     }
     return {q0 + it, tile_m0, tile_m0, p.M};
   };
-  const int steps = twin_rows(kMode) ? 3 * kc : (kMode == kEdge ? 2 * kc : kc);
+  const int steps = twin_rows(kMode) ? 3 * kc : 2 * kc;
   const int gsteps = iters * steps;
-  const int tps = kMode == kPooled ? 2 : 1;              // W1 tiles per step
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 #ifdef WG_TRACE
   const bool traced = blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0;
@@ -545,7 +552,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
   }
   cluster_sync();
 
-  const int tpi = steps * tps;                            // W1 tiles per work item
+  const int tpi = steps;                                  // W1 tiles per work item (one a step)
   const __nv_bfloat16* w_src = p.w1_tiles + (size_t)rank * 3 * kc * (kTileBytes / 2);
   auto issue_tile = [&](int i) {  // W1 tile i of this CTA's sequence into ring stage i % kStages
     const int st = i % kStages;
@@ -692,6 +699,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
     // CTA's 128 columns), pushed to every CTA's exchange buffer k, then the
     // ranks' values summed in rank order.
     auto cluster_row_sum = [&](float (&part)[2][2], int k, int it) {
+      WG_MARK(traced && tid == 0 && it < kTraceItems, kTraceEpi + it * 8 + 2 * k + 1);
       const int par = it & 1;
 #pragma unroll
       for (int dir = 0; dir < 2; ++dir)
@@ -722,6 +730,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
           for (int rk = 0; rk < ranks; ++rk) sum += xbuf[base + (rk * 2 + dir) * kEdgesCTA + ecta[i]];
           part[dir][i] = sum;
         }
+      WG_MARK(traced && tid == 0 && it < kTraceItems, kTraceEpi + it * 8 + 2 * k + 2);
     };
 
     for (int it = 0; it < iters; ++it) {
@@ -730,11 +739,9 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
       for (int i = 0; i < 64; ++i) acc0[i] = acc1[i] = 0.f;
       for (int s = 0; s < steps; ++s) {
         const int g = it * steps + s, slot = g % kASlots;
-        const int j = g * tps;
-        const int st0 = j % kStages, st1 = (j + tps - 1) % kStages;
+        const int st0 = g % kStages;
         WG_MARK(traced && tid == 0 && g < kTraceSteps, g * 8 + 0);
-        mbar_wait(bar(kBarWFull + st0), (j / kStages) & 1);
-        if (tps == 2) mbar_wait(bar(kBarWFull + st1), ((j + 1) / kStages) & 1);
+        mbar_wait(bar(kBarWFull + st0), (g / kStages) & 1);
         WG_MARK(traced && tid == 0 && g < kTraceSteps, g * 8 + 1);
         mbar_wait(bar(kBarAFull + slot), (g / kASlots) & 1);
         WG_MARK(traced && tid == 0 && g < kTraceSteps, g * 8 + 2);
@@ -750,7 +757,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
         __syncwarp();  // wgmma is warp-aligned: reconverge after the waits
         const uint32_t a0 = a_smem + slot * kASlotBytes + wg * 2 * kAChunkBytes;
         const uint64_t da0 = sw128_desc(a0), da1 = sw128_desc(a0 + kAChunkBytes);
-        const uint64_t db0 = sw128_desc(w_base + st0 * kTileBytes), db1 = sw128_desc(w_base + st1 * kTileBytes);
+        const uint64_t db0 = sw128_desc(w_base + st0 * kTileBytes);
         wgmma_fence();
         acc_fence(acc0);
         acc_fence(acc1);
@@ -758,7 +765,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
 #pragma unroll
         for (int kk = 0; kk < kChunkK / 16; ++kk) {  // 32 bytes of k per step: +2 in the descriptor
           wgmma_m64n128k16(acc0, da0 + 2 * kk, db0 + 2 * kk);
-          wgmma_m64n128k16(acc1, da1 + 2 * kk, db1 + 2 * kk);
+          wgmma_m64n128k16(acc1, da1 + 2 * kk, db0 + 2 * kk);
         }
 #endif
         wgmma_commit();
@@ -767,18 +774,11 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
         acc_fence(acc1);
         WG_MARK(traced && tid == 0 && g < kTraceSteps, g * 8 + 3);
         __syncwarp();
-        if (tw == 0) {
-          mbar_arrive(bar(kBarWEmpty + st0));
-          if (tps == 2) mbar_arrive(bar(kBarWEmpty + st1));
-        }
+        if (tw == 0) mbar_arrive(bar(kBarWEmpty + st0));
         if (tw < ranks) mbar_arrive_cluster(mapa(bar(kBarAEmpty + slot), tw));  // one lane per CTA
-        if (tid == 0) {  // refill the stages both warpgroups have released
-          for (int t = j; t < j + tps; ++t) {
-            if (t + kStages < iters * tpi) {
-              mbar_wait(bar(kBarWEmpty + t % kStages), (t / kStages) & 1);
-              issue_tile(t + kStages);
-            }
-          }
+        if (tid == 0 && g + kStages < iters * tpi) {  // refill the stage both warpgroups have released
+          mbar_wait(bar(kBarWEmpty + st0), (g / kStages) & 1);
+          issue_tile(g + kStages);
         }
         WG_MARK(traced && tid == 0 && g < kTraceSteps, g * 8 + 4);
         __syncwarp();
@@ -812,15 +812,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
       continue;
 #endif
 
-      WG_MARK(traced && tid == 0 && it < kTraceItems, kTraceEpi + it * 4);
-      float nv[2][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int m = wi.m0 + ecta[i];
-        const bool ok = kMode == kPooled && m < wi.lim;
-        nv[0][i] = ok ? p.nav[2 * (size_t)m] : 0.f;
-        nv[1][i] = ok ? p.nav[2 * (size_t)m + 1] : 0.f;
-      }
+      WG_MARK(traced && tid == 0 && it < kTraceItems, kTraceEpi + it * 8);
       // z into acc0 (fwd) and acc1 (bwd); columns past H are zero.
       float part[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
 #pragma unroll
@@ -829,32 +821,13 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
         const bool ok = col < H;
         const float2 wd = *reinterpret_cast<const float2*>(wts + col - col0);
         const float2 bb = *reinterpret_cast<const float2*>(wts + kSliceN + col - col0);
-        float2 cfb[2][2];  // [row][dir] c of columns col, col + 1 (kPooled)
-        if (kMode == kPooled) {
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int m = wi.m0 + ecta[i];
-            const float* cp = p.c + (2 * (size_t)m) * H + col;
-            const bool live = ok && m < wi.lim;
-            cfb[i][0] = live ? *reinterpret_cast<const float2*>(cp) : make_float2(0.f, 0.f);
-            cfb[i][1] = live ? *reinterpret_cast<const float2*>(cp + H) : make_float2(0.f, 0.f);
-          }
-        }
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int i = c >> 1;
           const float w = (c & 1) ? wd.y : wd.x;
-          float zf, zb;
-          if (twin_rows(kMode)) {
-            const float b = (c & 1) ? bb.y : bb.x;
-            zf = acc0[4 * jn + c] + dv[0][i] * w + b;
-            zb = acc1[4 * jn + c] + dv[1][i] * w + b;
-          } else {
-            const float cf = (c & 1) ? cfb[i][0].y : cfb[i][0].x, cb = (c & 1) ? cfb[i][1].y : cfb[i][1].x;
-            const float zi = acc0[4 * jn + c], zr = acc1[4 * jn + c];
-            zf = nv[0][i] * zi + zr + cf + dv[0][i] * w;
-            zb = nv[1][i] * zi + zr + cb + dv[1][i] * w;
-          }
+          const float b = (c & 1) ? bb.y : bb.x;
+          float zf = acc0[4 * jn + c] + dv[0][i] * w + b;
+          float zb = acc1[4 * jn + c] + dv[1][i] * w + b;
           if (!ok) zf = zb = 0.f;
           acc0[4 * jn + c] = zf;
           acc1[4 * jn + c] = zb;
@@ -863,7 +836,6 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
         }
       }
       cluster_row_sum(part, 0, it);
-      WG_MARK(traced && tid == 0 && it < kTraceItems, kTraceEpi + it * 4 + 1);
       float mean[2][2], rstd[2][2];
 #pragma unroll
       for (int dir = 0; dir < 2; ++dir)
@@ -884,7 +856,6 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
         }
       }
       cluster_row_sum(part, 1, it);
-      WG_MARK(traced && tid == 0 && it < kTraceItems, kTraceEpi + it * 4 + 2);
 #pragma unroll
       for (int dir = 0; dir < 2; ++dir)
 #pragma unroll
@@ -913,8 +884,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
         // A rolled loop: block jn is always acc*[0..3] (the blocks shift down
         // one per turn; this pass is the accumulators' last use).  Fully
         // unrolled, the 128 inlined GELUs were ~80 KB of straight-line code
-        // run once per item, and this pass took ~2.3x as long.  (The pooled
-        // modes keep the unrolled loop: rolled, kPooled spilled.)
+        // run once per item, and this pass took ~2.3x as long.  (kScore
+        // keeps the unrolled loop.)
 #pragma unroll 1
         for (int jn = 0; jn < kSliceN / 8; ++jn) {
           gelu_head(jn, 0);
@@ -929,7 +900,6 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
         for (int jn = 0; jn < kSliceN / 8; ++jn) gelu_head(jn, 4 * jn);
       }
       cluster_row_sum(part, 2, it);
-      WG_MARK(traced && tid == 0 && it < kTraceItems, kTraceEpi + it * 4 + 3);
       if (rank == 0 && (lane & 3) == 0) {
         const float b2 = p.w.b2s[0];
 #pragma unroll
@@ -938,6 +908,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
           if (m < wi.lim) p.scores[(long long)wi.q * p.ld_scores + m] = combine(part[0][i] + b2, part[1][i] + b2);
         }
       }
+      WG_MARK(traced && tid == 0 && it < kTraceItems, kTraceEpi + it * 8 + 7);
     }
   }
   // No CTA leaves while a peer may still push to or arrive on its shared memory.
@@ -946,7 +917,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) wg_kernel(WgArgs p) {
 
 // Launches wg_kernel<kMode> with a cluster of ceil(H / 128) CTAs; returns
 // the CUDA error (a cluster that cannot be scheduled is refused).  kScore,
-// kPooled, kEdge: one cluster per tile of M edges (and group of B queries).
+// kEdge: one cluster per tile of M edges (and group of B queries).
 // kQuestion: `clusters` clusters walk the live tiles of G questions of M
 // candidates each; 0 asks for as many as the card holds at once
 // (persistent), and the count is raised so that no cluster walks more than

@@ -221,6 +221,23 @@ def test_pooled_kernels_ragged_shapes(cuda, m, b):
     _hold_pooled(bundle, q, index, min(m, 10))
 
 
+@pytest.mark.parametrize("b", [1, 8, 9, 16, 33, 128])
+def test_fused_kernel_query_groups_at_production_width(cuda, b):
+    """Kernel 2 at D = H = 1024 with B queries over M = 4,096 + 77 candidates
+    (a ragged last tile): a CTA's consumer warpgroups walk one query between
+    them, an odd or even number, whole groups of 32, or a group and a ragged
+    one; one launch a call, the top-k held to the plain version."""
+    d = h = 1024
+    bundle = _bundle(d, h, 20, seed=b)
+    q, index = _pooled_case(cuda, b, 4096 + 77, d, seed=100 + b)
+    before = sk.query_topk_fused.launches
+    vals, ids = sk.query_topk_fused(bundle, q, index, k=20)
+    torch.cuda.synchronize()
+    assert sk.query_topk_fused.launches == before + 1
+    args = (bundle, q, index.head_repr, index.rel_repr, index.tail_repr, index.struct_raw)
+    _hold_topk(vals, ids, sk.fused_scores_reference(*args), 20, 1e-3)
+
+
 def test_pooled_kernels_chunk_the_scratch(cuda, monkeypatch):
     """A scratch limit below the call's need splits M into chunks (of 256
     candidates here) with the same results."""
