@@ -1,0 +1,17 @@
+"""The decode steps' share of the card's memory roofline: the bytes the
+traced window's decode steps must move (``llm_counts.decode_bytes``: the
+weights of the experts each step touched, every step's other weights, the
+latent cache rows read) over the program's ``reason.decode`` span seconds
+and 3.35 TB/s, in %.  None where the program records no decode span."""
+
+from benchmarks import counts, llm_counts, program_spans
+from benchmarks.drivers.reason import model_config
+
+
+def read(ctx):
+    tot = program_spans.totals()
+    span = tot["spans"].get("reason.decode") if tot is not None else None
+    if not span or not span["count"] or span["s"] <= 0:
+        return None
+    moved = llm_counts.decode_bytes(model_config(ctx["config"]), tot["counters"], span["count"])
+    return 100.0 * moved / span["s"] / counts.PEAK_BYTES

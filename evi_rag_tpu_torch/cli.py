@@ -983,7 +983,8 @@ def task_reasoner(cfg: dict, *, run_dir: pathlib.Path) -> dict[str, Any]:
     (``prompt_source=paths``: ``eval_gflownet`` rollouts or ``eval_bfs``
     chains), asks the chat backend, and writes
     ``reasoner/<split>.jsonl`` and its ``.metrics.json`` under
-    ``eval.artifacts_dir``.  Host only."""
+    ``eval.artifacts_dir``.  Host only, but for ``reasoner=local_moonlight``
+    (the in-process model, on ``device``)."""
     from evi_rag_tpu_torch.eval.artifacts import load_agent_store
     from evi_rag_tpu_torch.eval.llm_client import LLMConfig, init_llm
     from evi_rag_tpu_torch.eval.reasoner import ReasonerSettings, build_triplet_records, run_reasoner
@@ -1025,6 +1026,8 @@ def task_reasoner(cfg: dict, *, run_dir: pathlib.Path) -> dict[str, Any]:
                 ollama_base_url=str(r.get("ollama_base_url", "http://localhost:11434")),
                 ollama_timeout=float(r.get("ollama_timeout", 120.0)),
                 mock_response=mock_resp,
+                seed=int(r.get("seed", 0)),
+                **_local_llm_options(cfg),
             ))
             # Question text + gold answers from the normalized questions parquet.
             questions = _question_lookup(cfg)
@@ -1064,6 +1067,18 @@ def task_reasoner(cfg: dict, *, run_dir: pathlib.Path) -> dict[str, Any]:
         all_metrics.update({f"{split}/{k}": v for k, v in m.items()})
     save_metrics_json(run_dir / "metrics.json", all_metrics)
     return all_metrics
+
+
+def _local_llm_options(cfg: dict) -> dict[str, Any]:
+    """The ``local`` backend's model file (``reasoner.model_file``, relative
+    to the configs directory unless absolute) and ``device``."""
+    r = cfg.get("reasoner", {})
+    if str(r.get("backend", "")) != "local":
+        return {}
+    model_file = pathlib.Path(str(r.get("model_file", "")))
+    if not model_file.is_absolute():
+        model_file = pathlib.Path(cfg.get("_configs_dir", "configs")) / model_file
+    return dict(model_file=str(model_file), device=cfg.get("device"))
 
 
 @task_wrapper

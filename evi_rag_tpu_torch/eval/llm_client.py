@@ -8,7 +8,11 @@ Copy of ``evi_rag_tpu/eval/llm_client.py`` (the reference ``init_llm`` /
   package is absent);
 * ``vllm``    -- GPU serving (``tensor_parallel_size`` passthrough);
   import-gated;
-* ``mock``    -- deterministic canned-response backend for tests/CI.
+* ``mock``    -- deterministic canned-response backend for tests/CI;
+* ``local``   -- the port's own: Moonlight-16B-A3B in this process
+  (``eval/local_llm.py``), built from ``model_file`` (the published
+  ``config.json`` keys) and ``seed`` on ``device``; it takes a batch of
+  chats at once (``.batch``, up to ``max_batch``).
 
 No backend falls back to another.  ``backend="auto"`` resolves like the
 reference: "gpt" in the model name => openai, else vllm.  Rate-limit retry
@@ -33,7 +37,7 @@ class ChatBackend(Protocol):
 @dataclasses.dataclass(frozen=True)
 class LLMConfig:
     model_name: str
-    backend: str = "auto"  # auto|ollama|vllm|openai|mock
+    backend: str = "auto"  # auto|ollama|vllm|openai|mock|local
     temperature: float = 0.0
     max_tokens: int = 1024
     max_seq_len: int = 4096
@@ -43,6 +47,8 @@ class LLMConfig:
     ollama_base_url: str = "http://localhost:11434"
     ollama_timeout: float = 120.0
     mock_response: str = '{"answers": []}'
+    model_file: str = ""
+    device: str | None = None
 
 
 def init_llm(cfg: LLMConfig) -> ChatBackend:
@@ -54,6 +60,15 @@ def init_llm(cfg: LLMConfig) -> ChatBackend:
         def _mock(messages: list[Message]) -> str:
             return cfg.mock_response
         return _mock
+
+    if backend == "local":
+        from evi_rag_tpu_torch.eval.local_llm import LocalLLM
+        from evi_rag_tpu_torch.utils.device import resolve_device
+
+        if not cfg.model_file:
+            raise ValueError("backend='local' needs model_file (a deepseek_v3 config.json)")
+        return LocalLLM.from_file(cfg.model_file, seed=cfg.seed, device=resolve_device(cfg.device),
+                                  max_tokens=cfg.max_tokens)
 
     if backend == "ollama":
         model = cfg.model_name.split(":", 1)[-1] if cfg.model_name.startswith("ollama:") else cfg.model_name

@@ -13,7 +13,9 @@ Copy of ``evi_rag_tpu/eval/reasoner.py`` on the port's ``AgentSample``
   rollouts or the BFS baseline); a chain hits iff it is one of the per-pair
   shortest chains;
 * ``run_reasoner`` executes llm|oracle mode, writes predictions ``.jsonl``
-  and ``.metrics.json`` next to it.
+  and ``.metrics.json`` next to it; a backend with ``batch`` (the
+  in-process ``local`` one) gets each chunk of ``max_batch`` records as one
+  call, every other backend one record a call.
 """
 
 from __future__ import annotations
@@ -195,6 +197,14 @@ def build_path_records(
     }
 
 
+def chat_messages(rec: Mapping[str, Any]) -> list[dict[str, str]]:
+    """The chat a record asks: the system prompt, then its prompt."""
+    return [
+        {"role": "system", "content": SYSTEM_PROMPT},
+        {"role": "user", "content": rec["prompt"]},
+    ]
+
+
 def run_reasoner(
     records: Iterable[dict[str, Any]],
     *,
@@ -222,13 +232,17 @@ def run_reasoner(
         if llm is None:
             raise ValueError("llm mode requires a chat backend")
         predictions = []
-        for rec in records:
-            messages = [
-                {"role": "system", "content": SYSTEM_PROMPT},
-                {"role": "user", "content": rec["prompt"]},
-            ]
-            out = run_chat(llm, messages)
-            predictions.append({**rec, "prediction": out})
+        batch = getattr(llm, "batch", None)
+        if batch is None:
+            for rec in records:
+                out = run_chat(llm, chat_messages(rec))
+                predictions.append({**rec, "prediction": out})
+        else:  # a backend that batches gets each chunk of records at once
+            records = list(records)
+            for i in range(0, len(records), llm.max_batch):
+                chunk = records[i:i + llm.max_batch]
+                outs = batch([chat_messages(rec) for rec in chunk])
+                predictions.extend({**rec, "prediction": out} for rec, out in zip(chunk, outs))
         # Dedup by (id, window_k), latest wins (reference dedup after gather).
         seen: dict[tuple, dict] = {}
         for p in predictions:
