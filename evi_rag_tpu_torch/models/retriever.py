@@ -25,6 +25,10 @@ projectors and ``score_head`` have no dtype and promote (a bf16 input with
 f32 parameters runs in f32); ``LayerNorm(dtype=bf16)`` takes its statistics
 in f32 (mean and mean of squares) and returns bf16; ``state_net_0`` is
 ``ops.nnfn.dense_split`` (bf16 operands, f32 sums), the form serving uses.
+On the card its bf16 products, forward and backward, run on the tensor cores
+as bf16 GEMMs that sum and write in f32, with one rounding to bf16 at the end
+(``ops.nnfn.DenseSplitBF16``): the product of two bf16 values is exact in
+f32, so they compute the f32 route's products, summed in another order.
 
 **Random draws** (dropout keep masks, one per direction, and the
 hide-and-seek uniforms) come from ``make_draws`` with an explicit generator,

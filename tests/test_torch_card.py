@@ -432,6 +432,73 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     assert np.isfinite(bf["loss"]) and np.isfinite(bf["grad_norm"]) and bf["grads_finite"], bf
 
 
+def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in bf16 ulps of the larger of |a|, |b| and 1/32 of b's RMS:
+    below that floor two f32 sums of thousands of terms that cancel may
+    differ by more than a bf16 ulp of their small result."""
+    a, b = a.double(), b.double()
+    scale = torch.maximum(torch.maximum(a.abs(), b.abs()), b.pow(2).mean().sqrt() / 32)
+    return (a - b).abs() / torch.exp2(torch.floor(torch.log2(scale)) - 7)
+
+
+def test_dense_split_tensor_core_route_matches_the_f32_route(cuda):
+    """``dense_split`` at bf16 on the card (``DenseSplitBF16``: bf16 GEMMs
+    that write f32) against ``dense_split_f32`` (f32 GEMMs of the cast
+    operands, TF32 off) at production width: parts 1,024 / 1,024 / 1,024 /
+    1, H = 1,024, 8,192 rows.  The output and the gradients of every part
+    and of each kernel slice agree within one bf16 ulp (``_bf16_ulps``),
+    at least 99% of each equal; the bias's f32 gradient within f32
+    rounding."""
+    from evi_rag_tpu_torch.ops import nnfn
+
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    d, h, e = 1024, 1024, 8192
+    kernel = torch.randn(3 * d + 1, h, device=cuda, generator=gen) / np.sqrt(3 * d + 1)
+    bias = 0.1 * torch.randn(h, device=cuda, generator=gen)
+    parts = tuple(torch.tanh(torch.randn(e, w, device=cuda, generator=gen)).to(torch.bfloat16) for w in (d, d, d))
+    parts += (-torch.rand(e, 1, device=cuda, generator=gen).mul(40).to(torch.bfloat16),)
+    w = torch.randn(e, h, device=cuda, generator=gen)
+
+    def run(fn):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (kernel, bias, *parts)]
+        out = fn({"kernel": leaves[0], "bias": leaves[1]}, tuple(leaves[2:]), torch.bfloat16)
+        out_grads = torch.autograd.grad((out.float() * w).sum(), leaves)
+        named = {"out": out.detach(), "bias": out_grads[1]}
+        named.update({f"kernel{i}": k for i, k in enumerate(out_grads[0].split([d, d, d, 1]))})
+        named.update({f"part{i}": g for i, g in enumerate(out_grads[2:])})
+        return named
+
+    got, want = run(nnfn.dense_split), run(nnfn.dense_split_f32)
+    assert got["out"].dtype == torch.bfloat16
+    for name, b in want.items():
+        a = got[name]
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if name == "bias":
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+            continue
+        ulps, equal = float(_bf16_ulps(a, b).max()), float((a == b).float().mean())
+        assert ulps <= 1.0 and equal >= 0.99, (name, ulps, equal)
+
+
+def test_bf16_train_step_takes_the_tensor_core_route(cuda):
+    """While a profiler session runs, one bf16 ``loss_and_grads`` step
+    (bidirectional, D = H = 1,024) counts ``nnfn.dense_split.tc`` twice, one
+    a direction (the backward adds none), and ``nnfn.dense_split.f32``
+    never."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from evi_rag_tpu_torch.testing import bf16_card_step
+    from evi_rag_tpu_torch.utils import profiling
+
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        bf = bf16_card_step()
+    counters = profiling.totals()["counters"]
+    profiling.reset()
+    assert counters.get("nnfn.dense_split.tc") == 2 and "nnfn.dense_split.f32" not in counters, counters
+    assert np.isfinite(bf["loss"]) and bf["grads_finite"], bf
+
+
 def test_gflownet_step_on_the_card_matches_the_cpu(cuda):
     """One f32 GFlowNet train step at H = 64 (4 rollouts, the same Gumbel
     uniforms, dropout 0, TF32 off) from perturbed parameters, so that every

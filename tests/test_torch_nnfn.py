@@ -94,3 +94,62 @@ def test_dense_split_matches_jax(data, dtype):
 def test_dense_split_rejects_row_mismatch(data):
     with pytest.raises(ValueError, match="parts sum"):
         tnn.dense_split(_t(data["split"]), (torch.zeros(B, D),), torch.float32)
+
+
+def _split_case(case):
+    """(kernel, bias, parts) at D, H, B: parts as the retriever's
+    ``state_net_0`` gets them (bf16 interaction | struct ctx | error, the
+    width-1 distance), or f32 parts beside bf16 ones as the plain scorer
+    gets them, or with a leading group axis."""
+    rng = np.random.default_rng(2)
+    p = _dense_params(rng, 3 * D + 1, H)
+    kernel, bias = torch.as_tensor(p["kernel"]), torch.as_tensor(p["bias"])
+    lead = (3, B) if case == "grouped" else (B,)
+    dts = (torch.float32, torch.bfloat16, torch.float32, torch.float32) if case == "mixed" else (torch.bfloat16,) * 4
+    parts = tuple(torch.as_tensor(rng.normal(size=(*lead, d)).astype(np.float32)).to(dt)
+                  for d, dt in zip((D, D, D, 1), dts))
+    return kernel, bias, parts
+
+
+@pytest.mark.parametrize("case", ["retriever", "mixed", "grouped", "checkpoint"])
+def test_dense_split_bf16_function_matches_the_f32_chain_bit_for_bit(case):
+    """``DenseSplitBF16`` with the CPU's product against autograd through
+    ``dense_split_f32`` at bf16: the output and the gradients of every
+    part, the kernel and the bias equal bit for bit (also recomputed under
+    ``torch.utils.checkpoint``, as ``remat=True`` runs it)."""
+    kernel, bias, parts = _split_case(case)
+    w = torch.as_tensor(np.random.default_rng(3).normal(size=(*parts[0].shape[:-1], H)).astype(np.float32))
+
+    def run(fn):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (kernel, bias, *parts)]
+        out = fn(*leaves)
+        grads = torch.autograd.grad((out.float() * w).sum(), leaves)
+        return out, grads
+
+    chain = lambda k, b, *xs: tnn.dense_split_f32({"kernel": k, "bias": b}, xs, torch.bfloat16)
+    fn = tnn.DenseSplitBF16.apply
+    if case == "checkpoint":
+        fn = lambda *a: torch.utils.checkpoint.checkpoint(tnn.DenseSplitBF16.apply, *a, use_reentrant=False)
+    want, want_grads = run(chain)
+    got, got_grads = run(fn)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.equal(got, want)
+    for name, g, ref in zip(["kernel", "bias", "part0", "part1", "part2", "part3"], got_grads, want_grads):
+        assert g.dtype == ref.dtype and torch.equal(g, ref), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_split_off_the_card_counts_the_f32_route(dtype):
+    """Only bf16 on CUDA takes the tensor-core route: off the card, f32 and
+    bf16 alike count ``nnfn.dense_split.f32``, once per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from evi_rag_tpu_torch.utils import profiling
+
+    kernel, bias, parts = _split_case("retriever")
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(2):
+            tnn.dense_split({"kernel": kernel, "bias": bias}, parts, dtype)
+    assert profiling.totals()["counters"] == {"nnfn.dense_split.f32": 2}
+    profiling.reset()

@@ -192,7 +192,9 @@ def test_serve_split_counts_routes_by_the_grouping_rule(small_ds, bundle):
     c = tot["counters"]
     for route, w in want.items():
         assert (c[f"serve.edges.{route}"], c[f"serve.slots.{route}"]) == (w["edges"], w["slots"]), route
-    assert set(c) == {f"serve.{n}.{r}" for n in ("edges", "slots") for r in ("kernel", "plain")}
+    assert set(c) == {f"serve.{n}.{r}" for n in ("edges", "slots") for r in ("kernel", "plain")} \
+        | {"nnfn.dense_split.f32"}
+    assert c["nnfn.dense_split.f32"] == 2 * want["plain"]["groups"]  # the plain scorer's two views, off the card
     spans = tot["spans"]
     for name in ("serve.setup", "serve.plan", "serve.pack", "serve.dispatch", "serve.stage", "serve.drain"):
         assert spans[name]["count"] >= 1, name
@@ -220,7 +222,9 @@ def test_serve_split_f32_counts_every_group_plain(small_ds, bundle):
     with _cpu_profile():
         _serve(bundle, small_ds, dtype=torch.float32)
     c = profiling.totals()["counters"]
-    assert c == {"serve.edges.plain": sum(s.edge_index.shape[1] for s in samples), "serve.slots.plain": slots}
+    groups = -(-len(samples) // GROUP)
+    assert c == {"serve.edges.plain": sum(s.edge_index.shape[1] for s in samples), "serve.slots.plain": slots,
+                 "nnfn.dense_split.f32": 2 * groups}
 
 
 def _train_setup():
