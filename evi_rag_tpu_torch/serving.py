@@ -7,17 +7,24 @@ device; per question only the question-conditioned geometry + MLP head run,
 over struct features (topic-anchored DDE) rebuilt on the device from the
 subgraph's topology.
 
-Questions are sorted by edge count and grouped ``group_size`` at a time into
-power-of-two buckets (``n_pad = m_pad``); groups are cut into windows by an
-estimate of their staged bytes, and each window's buckets are dispatched in
-chunks by the ``_chunk_plan`` ladder.  bf16 buckets with ``m_pad >=
-fused_threshold`` go through the hand-written kernel
-(``ops.score_kernels.per_question_topk``); smaller buckets and every f32
-request go through the plain PyTorch scorer (``ops.query``).  An f32 request
-never reaches the bf16 kernel.  Nor does a model or k outside the kernel's
-shape limits (``ops.score_kernels.kernel_supports``: emb_dim 96, hidden
-2048, S = 36, k = 1500, ...): its buckets take the plain bf16 scorer, as
-buckets under the threshold do, and the call logs one line naming the limit.
+``serve_split`` is a pipeline of five steps.  **plan** (``plan_windows``):
+sort by edge count, group ``group_size`` questions at a time, bucket each
+group by its power-of-two width m_pad (``bucket_width``; n_pad = m_pad),
+and cut the groups into windows at ``WINDOW_BYTES`` of staged feed; then
+give each bucket its route once (``route_buckets``).  **pack**
+(``pack_group_compact``): one group's feed.  **dispatch** (``_dispatch``): a
+window's groups of one bucket, stacked and uploaded once per field from
+pinned memory, scored group by group by ``serve_window``.  **stage**
+(``_stage``): start the copy of the window's results to the host.
+**drain** (``_drain``): wait and unpack, one window behind, so that the
+next window packs and dispatches meanwhile.
+
+The routes: bf16 buckets with ``m_pad >= fused_threshold`` take the
+hand-written kernel (``ops.score_kernels.per_question_topk``); smaller
+buckets and every f32 request take the plain PyTorch scorer
+(``ops.query``).  A model or k outside the kernel's shape limits
+(``kernel_limit``: emb_dim 96, hidden 2048, S = 36, k = 1500, ...) takes the
+plain bf16 scorer, and the call logs one line naming the limit.
 
 With a ``mesh`` (``parallel.mesh``), each group's question axis splits
 across the mesh's devices (the group size rounds up to a multiple of the
@@ -28,33 +35,31 @@ the XLA scorer under a mesh because a ``pallas_call`` does not partition
 itself, bf16 buckets from ``fused_threshold`` up take the kernel on every
 device.
 
-What the JAX engine did only for a remote TPU link is gone: int16 feeds,
-bf16-in-int32 result packing, padding chunks to a fixed compiled shape.
-Feeds go up from pinned host memory with ``non_blocking`` copies; each
-window's results come back the same way while the next window is dispatched.
-Under bf16 compute the scores come back rounded to bf16 (and widened to
-f32), as the JAX engine returns them; f32 requests return exact f32 scores.
+Nothing is padded to a compiled width (the JAX engine's chunk ladder), and
+feeds and results travel unpacked.  Under bf16 compute the scores come back
+rounded to bf16 (and widened to f32), as the JAX engine returns them; f32
+requests return exact f32 scores.
 
 Tracing (``utils/profiling.py``; on exactly while a ``torch.profiler``
 session records, and free of cost but one check per span while off): each
 ``serve_split`` call is one call id; its spans are ``serve.setup`` (entry to
-replicas ready), ``serve.warmup``, ``serve.plan`` (sort, groups, windows),
-per window ``serve.pack``, ``serve.stage`` and ``serve.drain``, per chunk
-``serve.dispatch`` (the warm-up's too), and ``serve.wait`` around each host
-wait on the card (the set-up's and warm-up's syncs, the drain's event).
-Counters, per route (``kernel`` for kernel 3, ``plain`` for the plain
-scorer): ``serve.edges.<route>`` (real edges) and ``serve.slots.<route>``
-(group size x m_pad as dispatched), whose ratio is the share of dispatched
-slots that hold an edge.  ``profiling.trace(dir)`` writes them to
-``dir/spans.json``.  ``ServeStats`` keeps its own timers.
+replicas ready), ``serve.warmup``, ``serve.plan`` (sort, groups, windows,
+routes), per window ``serve.pack``, ``serve.stage`` and ``serve.drain``, per
+window and bucket ``serve.dispatch`` (the warm-up's too), and ``serve.wait``
+around each host wait on the card (the set-up's and warm-up's syncs, the
+drain's event).  Counters, per route (``kernel`` for kernel 3, ``plain`` for
+the plain scorer): ``serve.edges.<route>`` (real edges) and
+``serve.slots.<route>`` (group size x m_pad as dispatched), whose ratio is
+the share of dispatched slots that hold an edge.  ``profiling.trace(dir)``
+writes them to ``dir/spans.json``.  ``ServeStats`` keeps its own timers.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
+import functools
 import time
-from typing import Any, Callable, Iterable, Sequence
+from typing import Any, Callable, Iterable, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -208,10 +213,10 @@ class ServeStats:
     scoring_s: float
     queries_per_s: float
     num_groups: int
-    # Phase breakdown: host packing, dispatch loop (pack + H2D enqueue +
-    # asynchronous kernel launches) and drain (waiting for the device and
-    # the [G, k] results).  pack_s is a subset of dispatch_s; device compute
-    # overlaps both.
+    # Phase breakdown: host packing, dispatch loop (H2D enqueue,
+    # asynchronous kernel launches, the results' copy start) and drain
+    # (waiting for the device and unpacking the [G, k] results); device
+    # compute overlaps all three.
     pack_s: float = 0.0
     dispatch_s: float = 0.0
     drain_s: float = 0.0
@@ -235,6 +240,180 @@ def bucket_width(group: Sequence[RetrievalSample], k: int) -> int:
     m_pad = _pow2_at_least(max(max(s.edge_index.shape[1], 1) for s in group))
     m_pad = max(m_pad, _pow2_at_least(k))
     return max(m_pad, _pow2_at_least(max(s.num_nodes for s in group) + 1))
+
+
+# Staged-feed bytes a window may hold (the estimate of ``plan_windows``).
+WINDOW_BYTES = 256 << 20
+
+
+class _Group(NamedTuple):
+    idxs: list[int]                    # the questions' positions in the call's samples
+    samples: list[RetrievalSample]
+    m_pad: int                         # its bucket: padded edges, and padded nodes (n_pad = m_pad)
+
+
+def plan_windows(samples: Sequence[RetrievalSample], k: int, group_size: int) -> list[list[_Group]]:
+    """Sort by edge count, cut groups of ``group_size``, bucket each by
+    ``bucket_width``, then cut the groups into windows greedily: a window
+    closes before the group that would take its staged-feed estimate past
+    ``WINDOW_BYTES`` or its questions past ``group_size * max(8, 8192 //
+    group_size)``."""
+    order = sorted(range(len(samples)), key=lambda i: samples[i].edge_index.shape[1])
+    max_questions = group_size * max(8, 8192 // max(group_size, 1))
+    windows: list[list[_Group]] = []
+    cur: list[_Group] = []
+    cur_bytes = 0
+    for g0 in range(0, len(order), group_size):
+        idxs = order[g0 : g0 + group_size]
+        group = [samples[i] for i in idxs]
+        m_pad = bucket_width(group, k)
+        nbytes = group_size * (
+            3 * m_pad * 4            # eidx [2, m_pad] + rel_ids, int32
+            + m_pad * 4 + m_pad      # node_rows (int32) + topic (uint8), n_pad = m_pad
+        )
+        if cur and (cur_bytes + nbytes > WINDOW_BYTES or (len(cur) + 1) * group_size > max_questions):
+            windows.append(cur)
+            cur, cur_bytes = [], 0
+        cur.append(_Group(idxs, group, m_pad))
+        cur_bytes += nbytes
+    if cur:
+        windows.append(cur)
+    return windows
+
+
+def route_buckets(m_pads: Iterable[int], *, bf16: bool, fused_threshold: int, fault: str | None) -> dict[int, str]:
+    """Each bucket's scorer, ``"kernel"`` or ``"plain"``, by the module
+    docstring's rule; ``fault`` is ``kernel_limit``'s message or None."""
+    m_pads = sorted(set(m_pads))
+    wanted = [m for m in m_pads if bf16 and m >= fused_threshold]
+    if wanted and fault is not None:
+        log.warning("serve: bf16 buckets from m_pad %d take the plain bf16 scorer, not the kernel (%s)",
+                    wanted[0], fault)
+        wanted = []
+    return {m: "kernel" if m in wanted else "plain" for m in m_pads}
+
+
+def pack_group_compact(group: Sequence[RetrievalSample], G: int, m_pad: int) -> dict[str, np.ndarray]:
+    """Feed for one group of at most ``G`` questions in bucket ``m_pad`` (n_pad
+    = m_pad): local ids, per-node table rows (expanded to per-edge rows on
+    the device), prefix lengths, topic flags, node counts, question rows."""
+    n_pad = m_pad
+    eidx = np.full((G, 2, m_pad), n_pad - 1, np.int32)
+    node_rows = np.zeros((G, n_pad), np.int32)
+    rel_ids = np.zeros((G, m_pad), np.int32)
+    lengths = np.zeros(G, np.int32)
+    topic = np.zeros((G, n_pad), np.uint8)
+    ncnt = np.zeros(G, np.int32)
+    qids = np.zeros(G, np.int32)
+    for g, s in enumerate(group):
+        e = s.edge_index.shape[1]
+        eidx[g, :, :e] = s.edge_index
+        node_rows[g, : s.num_nodes] = s.node_embedding_ids
+        rel_ids[g, :e] = s.edge_relations
+        lengths[g] = e
+        topic[g, s.topic_locals] = 1
+        ncnt[g] = s.num_nodes
+        qids[g] = s.question_id
+    return dict(eidx=eidx, node_rows=node_rows, rel_ids=rel_ids,
+                lengths=lengths, topic=topic, ncnt=ncnt, qids=qids)
+
+
+def _replica(d: torch.device, *, bundle: dict[str, Any], projected: tuple[Any, Any], question_emb: np.ndarray,
+             kernel_path: bool) -> dict[str, Any]:
+    """The tables, question embeddings and weights on device ``d``; the
+    tables under each route's name (the kernel's in bf16)."""
+    f = tree_to(bundle["features"], d)
+    ent_t, rel_t = (torch.as_tensor(x, dtype=torch.float32).to(d) for x in projected)
+    out = dict(bundle={**bundle, "features": f}, plain=(ent_t, rel_t),
+               q=torch.as_tensor(np.asarray(question_emb, dtype=np.float32)).to(d),
+               weights=prep_weights(f) if kernel_path else None,
+               kernel=(ent_t.to(torch.bfloat16), rel_t.to(torch.bfloat16)) if kernel_path else None)
+    _sync(d)
+    return out
+
+
+def _upload(x: np.ndarray, d: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if d.type == "cuda":
+        return t.pin_memory().to(d, non_blocking=True)
+    return t
+
+
+@profiling.spanned("serve.dispatch")
+def _dispatch(feeds: list[dict[str, np.ndarray]], route: str, *, replicas: list[dict[str, Any]],
+              devices: Sequence[torch.device], score: Callable[..., tuple[torch.Tensor, torch.Tensor]],
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``score`` (``serve_window``) over one window's groups of one bucket:
+    one stacked feed, one upload per field and device, each group's
+    questions split over ``devices``; the [B, G, k] results on the first
+    device.  No padding: ``serve_window`` serves the groups one after
+    another."""
+    feed = {f: np.stack([a[f] for a in feeds]) for f in feeds[0]}
+    per = feed["qids"].shape[1] // len(devices)
+    vals, ids = [], []
+    for j, (d, rep) in enumerate(zip(devices, replicas)):
+        u = {f: _upload(x[:, j * per:(j + 1) * per], d) for f, x in feed.items()}
+        ent, rel = rep[route]
+        v, i = score(
+            rep["bundle"], rep["q"], ent, rel,
+            u["eidx"], u["node_rows"], u["rel_ids"], u["lengths"], u["topic"], u["ncnt"], u["qids"],
+            use_fused=route == "kernel", weights=rep["weights"],
+        )
+        vals.append(v.to(devices[0]))
+        ids.append(i.to(devices[0]))
+    if len(devices) == 1:
+        return vals[0], ids[0]
+    return torch.cat(vals, dim=1), torch.cat(ids, dim=1)
+
+
+@profiling.spanned("serve.stage")
+def _stage(pend: list[tuple[list[_Group], torch.Tensor, torch.Tensor]], *, round_bf16: bool,
+           dev: torch.device) -> tuple[list[_Group], torch.Tensor, torch.Tensor, torch.cuda.Event | None]:
+    """Concatenate a window's results and start their copy to the host.
+    Under bf16 compute the scores ship rounded to bf16, as the JAX engine
+    ships them (the top-k order was decided on the f32 scores before).
+    Returns the groups in row order (``group_size`` rows each), the host
+    scores and ids, and the event recorded after the copies (None off
+    CUDA)."""
+    vals = torch.cat([v.reshape(-1, v.shape[-1]) for _, v, _ in pend])
+    if round_bf16:
+        vals = vals.to(torch.bfloat16)
+    ids = torch.cat([i.reshape(-1, i.shape[-1]) for _, _, i in pend])
+    groups = [g for gs, _, _ in pend for g in gs]
+    if dev.type != "cuda":
+        return groups, vals, ids, None
+    vals_h = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
+    ids_h = torch.empty(ids.shape, dtype=ids.dtype, pin_memory=True)
+    vals_h.copy_(vals, non_blocking=True)
+    ids_h.copy_(ids, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(dev))
+    return groups, vals_h, ids_h, done
+
+
+@profiling.spanned("serve.drain")
+def _drain(staged: tuple, group_size: int, results: list[ServeResult | None]) -> float:
+    """Wait for a staged window and put each question's ranking into
+    ``results`` at its position (the slots past its edges, -inf, dropped).
+    Returns the seconds it took."""
+    t0 = time.perf_counter()
+    groups, vals_h, ids_h, done = staged
+    if done is not None:
+        with profiling.span("serve.wait"):
+            done.synchronize()
+    all_v = vals_h.float().numpy()
+    all_i = ids_h.numpy()
+    for gi, grp in enumerate(groups):
+        for j, (i, s) in enumerate(zip(grp.idxs, grp.samples)):
+            row = gi * group_size + j
+            keep = np.isfinite(all_v[row])
+            results[i] = ServeResult(
+                sample_id=s.sample_id,
+                question_id=s.question_id,
+                edge_ids=all_i[row][keep],
+                scores=all_v[row][keep].astype(np.float32),
+            )
+    return time.perf_counter() - t0
 
 
 @torch.inference_mode()
@@ -274,253 +453,71 @@ def serve_split(
         devices = mesh.devices
         group_size = -(-group_size // len(devices)) * len(devices)
         dev = devices[0]
-        on_cuda = dev.type == "cuda"
         t0 = time.perf_counter()
         feats = tree_to(bundle["features"], dev)
         bundle = {**bundle, "features": feats}
         if projected is None:
             projected = project_tables(bundle, entity_emb, relation_emb, device=dev)
-        kernel_path = dtype == torch.bfloat16
+        bf16 = dtype == torch.bfloat16
         # The kernel's shape limits hold per model and k, so one check serves
         # every bucket of the call.
         fault = kernel_limit(feats["q_gate"]["kernel"].shape[0], feats["state_net_0"]["kernel"].shape[-1],
                              feats["struct_proj"]["kernel"].shape[0], k)
-        routed_away = False
-
-        def replica(d: torch.device) -> dict[str, Any]:
-            """The tables, question embeddings and weights on device ``d``."""
-            f = tree_to(feats, d)
-            ent_t, rel_t = (torch.as_tensor(x, dtype=torch.float32).to(d) for x in projected)
-            out = dict(bundle={**bundle, "features": f}, ent=ent_t, rel=rel_t,
-                       q=torch.as_tensor(np.asarray(question_emb, dtype=np.float32)).to(d),
-                       weights=prep_weights(f) if kernel_path else None,
-                       ent_k=ent_t.to(torch.bfloat16) if kernel_path else None,
-                       rel_k=rel_t.to(torch.bfloat16) if kernel_path else None)
-            _sync(d)
-            return out
-
-        replicas = per_device(mesh, replica)
+        replicas = per_device(mesh, functools.partial(
+            _replica, bundle=bundle, projected=projected, question_emb=question_emb, kernel_path=bf16))
         index_build_s = time.perf_counter() - t0
 
-    results: list[ServeResult | None] = [None] * len(samples)
-
-    def drain(idxs, group, vals_np, ids_np) -> None:
-        for g, (i, s) in enumerate(zip(idxs, group)):
-            keep = np.isfinite(vals_np[g])
-            results[i] = ServeResult(
-                sample_id=s.sample_id,
-                question_id=s.question_id,
-                edge_ids=ids_np[g][keep],
-                scores=vals_np[g][keep].astype(np.float32),
-            )
-
-    num_groups = 0
-    pack_s = dispatch_s = drain_s = 0.0
-    max_window_samples = group_size * max(8, 8192 // max(group_size, 1))
-    byte_budget = int(os.environ.get("EVI_SERVE_WINDOW_BYTES", 256 << 20))
-
-    def pack_group_compact(group, G, m_pad, n_pad):
-        """Feed for one group: local ids, per-node table rows (expanded to
-        per-edge rows on the device), prefix lengths, topic flags."""
-        eidx = np.full((G, 2, m_pad), n_pad - 1, np.int32)
-        node_rows = np.zeros((G, n_pad), np.int32)
-        rel_ids = np.zeros((G, m_pad), np.int32)
-        lengths = np.zeros(G, np.int32)
-        topic = np.zeros((G, n_pad), np.uint8)
-        ncnt = np.zeros(G, np.int32)
-        qids = np.zeros(G, np.int32)
-        for g, s in enumerate(group):
-            e = s.edge_index.shape[1]
-            eidx[g, :, :e] = s.edge_index
-            node_rows[g, : s.num_nodes] = s.node_embedding_ids
-            rel_ids[g, :e] = s.edge_relations
-            lengths[g] = e
-            topic[g, s.topic_locals] = 1
-            ncnt[g] = s.num_nodes
-            qids[g] = s.question_id
-        return dict(eidx=eidx, node_rows=node_rows, rel_ids=rel_ids,
-                    lengths=lengths, topic=topic, ncnt=ncnt, qids=qids)
-
-    # Group boundaries + padded shapes first, then cut windows greedily where
-    # the staged-feed estimate would exceed the byte budget.  One shape axis:
-    # n_pad rides the edge ladder (n_pad = m_pad >= nodes + 1).
     with profiling.span("serve.plan"):
-        order = sorted(range(len(samples)), key=lambda i: samples[i].edge_index.shape[1])
-        group_recs = []
-        for g0 in range(0, len(order), group_size):
-            idxs = order[g0 : g0 + group_size]
-            group = [samples[i] for i in idxs]
-            m_pad = n_pad = bucket_width(group, k)
-            bytes_est = group_size * (
-                3 * m_pad * 4            # eidx [2, m_pad] + rel_ids, int32
-                + n_pad * 4 + n_pad      # node_rows + topic
-            )
-            group_recs.append((idxs, group, (m_pad, n_pad), bytes_est))
-        windows: list[list[tuple]] = []
-        cur: list[tuple] = []
-        cur_bytes = cur_samples = 0
-        for rec in group_recs:
-            if cur and (
-                cur_bytes + rec[3] > byte_budget
-                or cur_samples + group_size > max_window_samples
-            ):
-                windows.append(cur)
-                cur, cur_bytes, cur_samples = [], 0, 0
-            cur.append(rec)
-            cur_bytes += rec[3]
-            cur_samples += group_size
-        if cur:
-            windows.append(cur)
+        windows = plan_windows(samples, k, group_size)
+        routes = route_buckets((g.m_pad for win in windows for g in win), bf16=bf16,
+                               fused_threshold=fused_threshold, fault=fault)
+    score = functools.partial(serve_window, k=k, num_rounds=num_rounds, num_reverse_rounds=num_reverse_rounds,
+                              dtype=dtype, fused_fn=fused_fn)
+    dispatch = functools.partial(_dispatch, replicas=replicas, devices=devices, score=score)
 
-    # Dispatch-width ladder: full chunks of B_LARGE groups, then B_SMALL
-    # chunks, then one final chunk of the remainder.
-    B_SMALL = int(os.environ.get("EVI_SERVE_B_WINDOW", 8))
-    B_LARGE = max(int(os.environ.get("EVI_SERVE_B_WINDOW_MAX", 64)), B_SMALL)
-
-    def _chunk_plan(n: int) -> list[int]:
-        plan = [B_LARGE] * (n // B_LARGE)
-        rem = n - B_LARGE * len(plan)
-        while rem >= B_SMALL:
-            plan.append(B_SMALL)
-            rem -= B_SMALL
-        if rem:
-            plan.append(_pow2_at_least(rem))
-        return plan
-
-    def _use_fused(m_pad: int) -> bool:
-        # The kernel computes in bf16; an explicit float32 request keeps the
-        # plain PyTorch scorer, and so does a shape the kernel does not take.
-        nonlocal routed_away
-        if m_pad < fused_threshold or dtype != torch.bfloat16:
-            return False
-        if fault is None:
-            return True
-        if not routed_away:
-            routed_away = True
-            log.warning("serve: bf16 buckets from m_pad %d take the plain bf16 scorer, not the kernel (%s)",
-                        m_pad, fault)
-        return False
-
-    def _upload(x: np.ndarray, d: torch.device) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        if d.type == "cuda":
-            return t.pin_memory().to(d, non_blocking=True)
-        return t
-
-    @profiling.spanned("serve.dispatch")
-    def _dispatch(key: tuple, chunk: list[dict]) -> tuple[torch.Tensor, torch.Tensor]:
-        """``serve_window`` for the chunk's groups (no padding: the groups
-        are served one after another), each group's questions split over the
-        devices; the [B, G, k] results on the first device."""
-        feed = {f: np.stack([a[f] for a in chunk]) for f in chunk[0]}
-        fused = _use_fused(key[0])
-        per = group_size // len(devices)
-        vals, ids = [], []
-        for j, (d, rep) in enumerate(zip(devices, replicas)):
-            u = {f: _upload(x[:, j * per:(j + 1) * per], d) for f, x in feed.items()}
-            v, i = serve_window(
-                rep["bundle"], rep["q"],
-                rep["ent_k"] if fused else rep["ent"], rep["rel_k"] if fused else rep["rel"],
-                u["eidx"], u["node_rows"], u["rel_ids"],
-                u["lengths"], u["topic"], u["ncnt"], u["qids"],
-                k=k, num_rounds=num_rounds, num_reverse_rounds=num_reverse_rounds,
-                dtype=dtype, use_fused=fused, weights=rep["weights"], fused_fn=fused_fn,
-            )
-            vals.append(v.to(dev))
-            ids.append(i.to(dev))
-        if len(devices) == 1:
-            return vals[0], ids[0]
-        return torch.cat(vals, dim=1), torch.cat(ids, dim=1)
-
-    # Warmup before the timed loop (on by default on the GPU): one dispatch
-    # of an empty feed, at the smallest kernel-routed shape if there is one.
-    # It builds and loads the kernel and the glue's libraries; nothing is
-    # compiled per shape, and its one kernel launch scores no edge.
-    do_warmup = on_cuda if warmup is None else warmup
+    # Warm-up before the clock: one dispatch of an empty feed, at the
+    # smallest kernel-routed shape if there is one.  It builds and loads the
+    # kernel and the glue's libraries; nothing is compiled per shape, and its
+    # one kernel launch scores no edge.
     compile_s = 0.0
-    if do_warmup and windows:
+    if (dev.type == "cuda" if warmup is None else warmup) and windows:
         with profiling.span("serve.warmup"):
             tw = time.perf_counter()
-            keys = sorted({key for win in windows for _, _, key, _ in win})
-            key = next((kk for kk in keys if _use_fused(kk[0])), keys[0])
-            _dispatch(key, [pack_group_compact([], group_size, *key)])
+            m_pad = min((m for m, r in routes.items() if r == "kernel"), default=min(routes))
+            dispatch([pack_group_compact([], group_size, m_pad)], routes[m_pad])
             for d in set(devices):
                 _sync(d)
             compile_s = time.perf_counter() - tw
-    t1 = time.perf_counter()
-
-    @profiling.spanned("serve.stage")
-    def stage_window(pend):
-        """Concatenate a window's results and start their copy to the host.
-        Under bf16 compute the scores ship rounded to bf16, as the JAX engine
-        ships them (the top-k order was decided on the f32 scores before)."""
-        vals = torch.cat([v.reshape(-1, v.shape[-1]) for _, v, _ in pend])
-        if dtype == torch.bfloat16:
-            vals = vals.to(torch.bfloat16)
-        ids = torch.cat([i.reshape(-1, i.shape[-1]) for _, _, i in pend])
-        meta = [(m, v.shape[1]) for m, v, _ in pend]
-        if not on_cuda:
-            return meta, vals, ids, None
-        vals_h = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
-        ids_h = torch.empty(ids.shape, dtype=ids.dtype, pin_memory=True)
-        vals_h.copy_(vals, non_blocking=True)
-        ids_h.copy_(ids, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(dev))
-        return meta, vals_h, ids_h, done
-
-    @profiling.spanned("serve.drain")
-    def drain_window(staged) -> None:
-        nonlocal drain_s
-        t2 = time.perf_counter()
-        meta, vals_h, ids_h, done = staged
-        if done is not None:
-            with profiling.span("serve.wait"):
-                done.synchronize()
-        all_v = vals_h.float().numpy()
-        all_i = ids_h.numpy()
-        row = 0
-        for meta_chunk, g_per in meta:
-            for idxs, group in meta_chunk:
-                drain(idxs, group, all_v[row : row + g_per], all_i[row : row + g_per])
-                row += g_per
-        drain_s += time.perf_counter() - t2
 
     # One-window lookahead: window w+1 packs and dispatches before window w's
     # results are waited for, so host packing overlaps device compute.
+    t1 = time.perf_counter()
+    results: list[ServeResult | None] = [None] * len(samples)
+    pack_s = dispatch_s = drain_s = 0.0
     prev = None
-    for win_groups in windows:
+    for win in windows:
         tp = time.perf_counter()
-        packed: dict[tuple, list[dict]] = {}
-        metas: dict[tuple, list[tuple]] = {}
         with profiling.span("serve.pack"):
-            for idxs, group, key, _ in win_groups:
-                packed.setdefault(key, []).append(pack_group_compact(group, group_size, *key))
-                metas.setdefault(key, []).append((idxs, group))
-        pack_s += time.perf_counter() - tp
-
+            buckets: dict[int, tuple[list[_Group], list[dict]]] = {}
+            for grp in win:
+                groups, feeds = buckets.setdefault(grp.m_pad, ([], []))
+                groups.append(grp)
+                feeds.append(pack_group_compact(grp.samples, group_size, grp.m_pad))
         td = time.perf_counter()
+        pack_s += td - tp
         pend = []
-        for key, lst in packed.items():
+        for m_pad, (groups, feeds) in buckets.items():
             if profiling.enabled():
-                route = "kernel" if _use_fused(key[0]) else "plain"
-                profiling.count(f"serve.edges.{route}", sum(int(a["lengths"].sum()) for a in lst))
-                profiling.count(f"serve.slots.{route}", len(lst) * group_size * key[0])
-            c0 = 0
-            for b_cap in _chunk_plan(len(lst)):
-                chunk = lst[c0 : c0 + b_cap]
-                vals, ids = _dispatch(key, chunk)
-                pend.append((metas[key][c0 : c0 + b_cap], vals, ids))
-                c0 += b_cap
-            num_groups += len(metas[key])
-        staged = stage_window(pend)
+                profiling.count(f"serve.edges.{routes[m_pad]}", sum(int(a["lengths"].sum()) for a in feeds))
+                profiling.count(f"serve.slots.{routes[m_pad]}", len(groups) * group_size * m_pad)
+            pend.append((groups, *dispatch(feeds, routes[m_pad])))
+        staged = _stage(pend, round_bf16=bf16, dev=dev)
         dispatch_s += time.perf_counter() - td
-
         if prev is not None:
-            drain_window(prev)
+            drain_s += _drain(prev, group_size, results)
         prev = staged
     if prev is not None:
-        drain_window(prev)
+        drain_s += _drain(prev, group_size, results)
 
     scoring_s = time.perf_counter() - t1
     out = [r for r in results if r is not None]
@@ -529,7 +526,7 @@ def serve_split(
         index_build_s=round(index_build_s, 4),
         scoring_s=round(scoring_s, 4),
         queries_per_s=round(len(out) / scoring_s, 2) if scoring_s > 0 else 0.0,
-        num_groups=num_groups,
+        num_groups=sum(len(win) for win in windows),
         pack_s=round(pack_s, 4),
         dispatch_s=round(dispatch_s, 4),
         drain_s=round(drain_s, 4),

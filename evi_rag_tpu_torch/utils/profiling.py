@@ -37,9 +37,10 @@ records:
 
 * ``serving.serve_split`` (one call each): spans ``serve.setup``,
   ``serve.warmup``, ``serve.plan``, per window ``serve.pack``,
-  ``serve.stage`` and ``serve.drain``, per chunk ``serve.dispatch``, and
-  ``serve.wait`` around each host wait on the card; counters, per route
-  (``kernel``, ``plain``), ``serve.edges.<route>`` (real edges) and
+  ``serve.stage`` and ``serve.drain``, per window and bucket
+  ``serve.dispatch``, and ``serve.wait`` around each host wait on the
+  card; counters, per route (``kernel``, ``plain``),
+  ``serve.edges.<route>`` (real edges) and
   ``serve.slots.<route>`` (edge slots dispatched: group size x m_pad),
   whose ratio is the share of dispatched slots that hold an edge;
 * ``ops.score_kernels.per_question_topk``: ``kernel.per_question_topk``

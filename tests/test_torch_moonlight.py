@@ -1,5 +1,5 @@
 """The in-process reasoner LLM (``models/llm/``, ``eval/local_llm.py``) held
-to the plain reference (``tests/reference/moonlight_ref.py``) at a tiny
+to the plain reference (``benchmarks/reference/moonlight.py``) at a tiny
 size on the CPU, with seeded random weights: hidden 64, 4 heads, kv rank
 32, rope 16, 8 experts with top-2, 2 shared, 3 layers with layer 0 dense.
 
@@ -24,11 +24,11 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from benchmarks.reference import moonlight as moonlight_ref
 from evi_rag_tpu_torch.eval import llm_client, local_llm, reasoner
 from evi_rag_tpu_torch.models.llm import moonlight
 from evi_rag_tpu_torch.models.llm.config import MoonlightConfig
 from evi_rag_tpu_torch.utils import profiling
-from tests.reference import moonlight_ref
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PUBLISHED = json.loads((ROOT / "configs" / "reasoner" / "models" / "moonlight_16b_a3b.json").read_text())

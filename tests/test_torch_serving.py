@@ -187,25 +187,24 @@ def test_multi_bucket_drain_routing():
         np.testing.assert_allclose(r.scores, by_id[r.sample_id].scores, rtol=1e-5, atol=1e-6)
 
 
-def test_dispatch_ladder_and_window_budget(small_ds, monkeypatch):
-    """The B ladder and small byte-budgeted windows give the same results as
-    one flat dispatch; warmup changes nothing."""
+def test_window_budget_matches_one_window(small_ds, monkeypatch):
+    """A small byte budget cuts the split into several windows, and they
+    give the same results as one window; warmup changes nothing."""
     _, tb = _bundles(3)
     kw = dict(entity_emb=small_ds.entity_emb, relation_emb=small_ds.relation_emb,
               question_emb=small_ds.question_emb, k=10, num_rounds=2, num_reverse_rounds=2,
               group_size=1, dtype=torch.float32, device="cpu")
-    flat, _ = tserve.serve_split(tb, small_ds.samples, **kw)
-    monkeypatch.setenv("EVI_SERVE_B_WINDOW", "2")
-    monkeypatch.setenv("EVI_SERVE_B_WINDOW_MAX", "4")
-    monkeypatch.setenv("EVI_SERVE_WINDOW_BYTES", "4096")
-    ladder, stats = tserve.serve_split(tb, small_ds.samples, warmup=True, **kw)
+    flat, flat_stats = tserve.serve_split(tb, small_ds.samples, **kw)
+    assert flat_stats.num_windows == 1
+    monkeypatch.setattr(tserve, "WINDOW_BYTES", 4096)
+    windowed, stats = tserve.serve_split(tb, small_ds.samples, warmup=True, **kw)
     assert stats.num_windows > 1 and stats.compile_s > 0
-    for a, b in zip(flat, ladder):
+    for a, b in zip(flat, windowed):
         np.testing.assert_array_equal(a.edge_ids, b.edge_ids)
         np.testing.assert_array_equal(a.scores, b.scores)
 
 
-def test_mesh_serving_not_ported(small_ds):
+def test_mesh_serving_matches_one_device(small_ds):
     """Data-parallel serving is ported: over a mesh of two CPU entries every
     question comes back with the single-device serve's ids and scores
     (``tests/test_torch_dp_serve.py`` holds it to JAX's)."""

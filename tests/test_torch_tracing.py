@@ -10,8 +10,8 @@ program's spans in the serve engine and the train step, on the CPU.
   spans are user annotations among the trace's events.
 * ``serve_split`` traced: the route counters follow the grouping rule
   (``bucket_width``, ``fused_threshold``; on the CPU the kernel route runs
-  its plain version), and results and ``ServeStats`` are those of the
-  untraced call.
+  its plain version), one ``serve.dispatch`` per window and bucket, and
+  results and ``ServeStats`` are those of the untraced call.
 * One train step traced: its three spans, and a state and loss bit for bit
   the untraced step's.
 * ``trace(dir)`` writes ``spans.json`` beside ``trace.json``.
@@ -171,19 +171,27 @@ def test_bench_prefix_is_refused():
     assert not [n for n in names if n.startswith("bench.")]
 
 
-def test_serve_split_counts_routes_by_the_grouping_rule(small_ds, bundle):
+def test_serve_split_counts_routes_by_the_grouping_rule(small_ds, bundle, monkeypatch):
     samples = small_ds.samples
     order = sorted(range(len(samples)), key=lambda i: samples[i].edge_index.shape[1])
     want = {r: dict(groups=0, edges=0, slots=0) for r in ("kernel", "plain")}  # groups: both routes taken
+    rule = []  # (questions, m_pad) of each group in order
     for g0 in range(0, len(order), GROUP):
         group = [samples[i] for i in order[g0:g0 + GROUP]]
         m_pad = serving.bucket_width(group, K)
+        rule.append((order[g0:g0 + GROUP], m_pad))
         w = want["kernel" if m_pad >= THRESHOLD else "plain"]
         w["groups"] += 1
         w["edges"] += sum(s.edge_index.shape[1] for s in group)
         w["slots"] += GROUP * m_pad
     assert want["kernel"]["groups"] and want["plain"]["groups"]  # both routes taken
     assert want["kernel"]["edges"] + want["plain"]["edges"] == sum(s.edge_index.shape[1] for s in samples)
+    # A budget that cuts the groups into several windows, one of them with two buckets.
+    monkeypatch.setattr(serving, "WINDOW_BYTES", 20000)
+    windows = serving.plan_windows(samples, K, GROUP)
+    assert [(g.idxs, g.m_pad) for win in windows for g in win] == rule
+    pairs = {(w, g.m_pad) for w, win in enumerate(windows) for g in win}
+    assert len(windows) > 1 and len(pairs) > len(windows)
 
     plain_res, plain_stats = _serve(bundle, small_ds)
     with _cpu_profile():
@@ -199,7 +207,8 @@ def test_serve_split_counts_routes_by_the_grouping_rule(small_ds, bundle):
     for name in ("serve.setup", "serve.plan", "serve.pack", "serve.dispatch", "serve.stage", "serve.drain"):
         assert spans[name]["count"] >= 1, name
     assert spans["serve.pack"]["count"] == spans["serve.stage"]["count"] == spans["serve.drain"]["count"] \
-        == stats.num_windows
+        == stats.num_windows == len(windows)
+    assert spans["serve.dispatch"]["count"] == len(pairs)  # one dispatch per window and bucket
     assert "serve.warmup" not in spans and "serve.wait" not in spans  # the CPU neither warms up nor waits
     assert {r["call"] for r in profiling.REGISTRY.spans} == {1}
 
