@@ -30,25 +30,23 @@ def dde_diffuse(
             f"got {num_rounds}/{num_reverse_rounds}"
         )
     heads, tails = edge_index[0].long(), edge_index[1].long()
-    num_nodes = x.shape[0]
-
-    def direction(src: torch.Tensor, dst: torch.Tensor):
-        """The segment layout of one direction's messages, shared by its
-        rounds: (sources in sum order, lengths)."""
-        order, lengths = segment_layout(dst, num_nodes, mask=edge_mask)
-        return src[order], lengths
-
-    def one_round(h: torch.Tensor, layout) -> torch.Tensor:
-        src_sorted, lengths = layout
-        return sorted_segment_mean(h[src_sorted], lengths)
-
-    outs: list[torch.Tensor] = []
-    for rounds, layout in ((num_rounds, direction(heads, tails)), (num_reverse_rounds, direction(tails, heads))):
-        h = x
-        for _ in range(rounds):
-            h = one_round(h, layout)
-            outs.append(h)
-    return outs
+    n = x.shape[0]
+    # Both directions as one segment mean over 2N segments, whose layout is
+    # planned once: forward messages (head -> tail) land on segments
+    # [0, N) from the forward half of h, reverse ones on [N, 2N) from its
+    # reverse half.  Each segment holds the same elements in the same order
+    # as a direction of its own would.
+    dst, src = torch.cat([tails, heads + n]), torch.cat([heads, tails + n])
+    order, sums = segment_layout(dst, 2 * n, mask=None if edge_mask is None else edge_mask.repeat(2))
+    src_sorted = src[order]
+    h = torch.cat([x, x])
+    fwd: list[torch.Tensor] = []
+    rev: list[torch.Tensor] = []
+    for _ in range(max(num_rounds, num_reverse_rounds)):
+        h = sorted_segment_mean(h[src_sorted], sums)
+        fwd.append(h[:n])
+        rev.append(h[n:])
+    return fwd[:num_rounds] + rev[:num_reverse_rounds]
 
 
 def build_node_struct_features(

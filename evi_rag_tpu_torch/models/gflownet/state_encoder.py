@@ -86,11 +86,11 @@ class StateEncoder(nn.Module):
         ids = gb.node_batch
         if s > 1:
             ids = (ids.long()[None] + g * torch.arange(s, device=ids.device)[:, None]).reshape(-1)
-        order, lengths = segment_layout(ids, s * g, mask=(active & gb.node_mask[None]).reshape(-1))
+        order, layout = segment_layout(ids, s * g, mask=(active & gb.node_mask[None]).reshape(-1))
         rows = order if s == 1 else order % n
 
         def mean(table: torch.Tensor) -> torch.Tensor:
-            return sorted_segment_mean(gather_rows(table, rows), lengths).reshape(s, g, -1)
+            return sorted_segment_mean(gather_rows(table, rows), layout).reshape(s, g, -1)
 
         remaining = torch.clamp(self.max_steps - counts, 0, self.max_steps)
         tokens = mean(cache.node_tokens) + cache.question_tokens + self.step_embeddings(remaining) + action_hidden

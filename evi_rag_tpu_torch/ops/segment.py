@@ -8,42 +8,85 @@ breaks ties toward the lowest element index.  Segment ids must lie in
 ``[0, num_segments)``.
 
 The sum runs in a fixed order: a stable sort by segment id
-(``segment_layout``), then ``torch.segment_reduce`` adds each segment's
-elements in their original order.  So the same inputs give bitwise the same
-result from run to run on the card as on the CPU (an ``index_add_`` on CUDA
-adds with atomics, in an order that changes between runs).  A caller that
-reduces several tensors over the same segments (DDE's rounds) computes the
-layout once.  Max and min give the same result in any order, so they
-scatter directly.
+(``segment_layout``), then two passes of ``torch.segment_reduce``.  Pass 1
+cuts every segment into chunks of at most ``CHUNK_ROWS`` consecutive rows
+and sums each chunk; pass 2 adds each segment's chunk sums in chunk order.
+So a segment of at most ``CHUNK_ROWS`` rows sums exactly as one pass would
+(its one chunk sum is added to 0), and a longer one in a fixed
+association.  A thread of pass 1 walks at most ``CHUNK_ROWS`` rows, one of
+pass 2 at most ceil(L / ``CHUNK_ROWS``) + 1 chunk sums of a segment of L
+rows: CUDA's kernel for data with a row width gives one thread to each
+(segment, column), so in one pass the padding graph's ~100k rows would
+hold up a whole reduction.  The same inputs give bitwise the same result from run to
+run (an ``index_add_`` on CUDA adds with atomics, in an order that changes
+between runs).  Data with a row width gives the same bits on the card as
+on the CPU, whose kernels both add a chunk's rows one after another; 1-D
+data does not, as the card sums a 1-D chunk in a tree (CUB's segmented
+reduce) and the CPU still one row after another.
+A caller that reduces several tensors over the same segments (DDE's rounds)
+computes the layout, chunks included, once.  Max and min give the same
+result in any order, so they scatter directly.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+
+from evi_rag_tpu_torch.utils import profiling
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 
+CHUNK_ROWS = 256  # the most rows a thread of a sum's first pass adds
 
-SPARE_SEGMENTS = 1024  # past num_segments: they take the masked elements, spread so none is long
+
+class SegmentLayout(NamedTuple):
+    """A sum's plan over elements sorted by segment id: ``lengths``
+    ``[num_segments + 1]`` (the last segment holds the masked elements and
+    is dropped), ``chunk_lengths`` ``[K]`` (pass 1's chunks in sorted
+    order) and ``chunk_counts`` ``[num_segments + 1]`` (pass 2's chunks a
+    segment)."""
+
+    lengths: torch.Tensor
+    chunk_lengths: torch.Tensor
+    chunk_counts: torch.Tensor
 
 
 def _keys(segment_ids: torch.Tensor, num_segments: int, mask: torch.Tensor | None) -> torch.Tensor:
-    """int32 sort keys: the segment ids, with masked element i moved to spare
-    segment ``num_segments + i % SPARE_SEGMENTS`` (a segment's sum runs in one
-    thread, so one long segment of padding would hold up the whole
-    reduction)."""
+    """int32 sort keys: the segment ids, masked elements moved to segment
+    ``num_segments``."""
     ids = segment_ids.to(torch.int32)  # 32-bit sort keys: half the radix passes of int64
     if mask is None:
         return ids
-    spare = torch.arange(ids.shape[0], dtype=torch.int32, device=ids.device) % SPARE_SEGMENTS
-    return torch.where(mask.bool(), ids, num_segments + spare)
+    return torch.where(mask.bool(), ids, num_segments)
 
 
 def _lengths(keys: torch.Tensor, num_segments: int) -> torch.Tensor:
     # Integer adds give the same counts in any order; torch.bincount would
     # read its maximum back to the host, a sync per call on the card.
-    lengths = torch.zeros(num_segments + SPARE_SEGMENTS, dtype=torch.long, device=keys.device)
+    lengths = torch.zeros(num_segments + 1, dtype=torch.long, device=keys.device)
     return lengths.index_add_(0, keys, torch.ones_like(keys, dtype=torch.long))
+
+
+def _chunks(lengths: torch.Tensor, num_elements: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(chunk_lengths, chunk_counts) of ``lengths``, on their device with no
+    read back: segment s is cut into ceil(L_s / CHUNK_ROWS) chunks, all full
+    but its last.  Their number T lies between ceil(num_elements /
+    CHUNK_ROWS) and K = that + S (S = len(lengths)), so a static K chunks
+    leave K - T <= S empty ones over: one each for the first K - T
+    segments, after their own (a sum plus 0 is that sum), so that pass 2
+    walks no long run of them."""
+    s = lengths.shape[0]
+    k = -(-num_elements // CHUNK_ROWS) + s
+    counts = (lengths + (CHUNK_ROWS - 1)) // CHUNK_ROWS
+    seg_ids = torch.arange(s, device=lengths.device)
+    counts = counts + (seg_ids < k - counts.sum())
+    ends = counts.cumsum(0)
+    chunk = torch.arange(k, device=lengths.device)
+    seg = torch.searchsorted(ends, chunk, right=True)
+    first_row = (chunk - (ends - counts)[seg]) * CHUNK_ROWS  # of the chunk within its segment
+    return (lengths[seg] - first_row).clamp_(0, CHUNK_ROWS), counts
 
 
 def segment_layout(
@@ -51,20 +94,22 @@ def segment_layout(
     num_segments: int,
     *,
     mask: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """(order, lengths): the stable permutation that sorts the elements by
-    segment id, and the ``[num_segments + SPARE_SEGMENTS]`` segment lengths
-    in that order.  Masked elements go to the spare segments, which the sums
-    drop."""
+) -> tuple[torch.Tensor, SegmentLayout]:
+    """(order, layout): the stable permutation that sorts the elements by
+    segment id, and the sums' ``SegmentLayout`` of the sorted elements.
+    Masked elements go to the last segment, which the sums drop."""
     keys = _keys(segment_ids, num_segments, mask)
-    return torch.argsort(keys, stable=True), _lengths(keys, num_segments)
+    lengths = _lengths(keys, num_segments)
+    return torch.argsort(keys, stable=True), SegmentLayout(lengths, *_chunks(lengths, keys.shape[0]))
 
 
-def sorted_segment_sum(sorted_data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+def sorted_segment_sum(sorted_data: torch.Tensor, layout: SegmentLayout) -> torch.Tensor:
     """Per-segment sum over the leading axis of data already in
-    ``segment_layout`` order."""
-    out = torch.segment_reduce(sorted_data, "sum", lengths=lengths, axis=0, unsafe=True)
-    return out[: lengths.shape[0] - SPARE_SEGMENTS]
+    ``segment_layout`` order: chunk sums, then each segment's chunk sums."""
+    profiling.count("segment.sum.chunks", layout.chunk_lengths.shape[0])
+    partial = torch.segment_reduce(sorted_data, "sum", lengths=layout.chunk_lengths, axis=0, unsafe=True)
+    out = torch.segment_reduce(partial, "sum", lengths=layout.chunk_counts, axis=0, unsafe=True)
+    return out[:-1]
 
 
 def segment_sum(
@@ -75,15 +120,15 @@ def segment_sum(
     mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Per-segment sum over the leading axis; masked elements contribute 0."""
-    order, lengths = segment_layout(segment_ids, num_segments, mask=mask)
-    return sorted_segment_sum(data[order], lengths)
+    order, layout = segment_layout(segment_ids, num_segments, mask=mask)
+    return sorted_segment_sum(data[order], layout)
 
 
-def sorted_segment_mean(sorted_data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+def sorted_segment_mean(sorted_data: torch.Tensor, layout: SegmentLayout) -> torch.Tensor:
     """Per-segment mean of data already in ``segment_layout`` order; empty
     segments give 0."""
-    total = sorted_segment_sum(sorted_data, lengths)
-    count = lengths[: total.shape[0]].clamp(min=1).to(total.dtype)
+    total = sorted_segment_sum(sorted_data, layout)
+    count = layout.lengths[: total.shape[0]].clamp(min=1).to(total.dtype)
     return total / count.reshape(count.shape + (1,) * (total.ndim - 1))
 
 
@@ -106,8 +151,8 @@ def segment_mean(
     mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Per-segment mean; empty segments give 0."""
-    order, lengths = segment_layout(segment_ids, num_segments, mask=mask)
-    return sorted_segment_mean(data[order], lengths)
+    order, layout = segment_layout(segment_ids, num_segments, mask=mask)
+    return sorted_segment_mean(data[order], layout)
 
 
 def _expand_mask(mask: torch.Tensor | None, data: torch.Tensor) -> torch.Tensor | None:

@@ -46,7 +46,9 @@ records:
 * ``ops.score_kernels.per_question_topk``: ``kernel.per_question_topk``
   around its launches (launches stay counted in ``.launches``);
 * ``train.retriever_trainer.make_train_step``'s step (one call each):
-  ``train.upload``, ``train.forward_backward``, ``train.optimizer``.
+  ``train.upload``, ``train.forward_backward``, ``train.optimizer``;
+* ``ops.segment.sorted_segment_sum``: counter ``segment.sum.chunks``, the
+  chunks of each two-pass sum (its static bound, a host int).
 
 Span names are literals and none starts with ``bench.``, the prefix a
 benchmark's harness keeps for its own spans.

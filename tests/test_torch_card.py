@@ -432,6 +432,31 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     assert np.isfinite(bf["loss"]) and np.isfinite(bf["grad_norm"]) and bf["grads_finite"], bf
 
 
+@pytest.mark.parametrize("width", [1024, None])
+def test_segment_sum_at_the_train_bucket_repeats_and_matches_the_cpu(cuda, width):
+    """``segment_sum`` of [131,072, 1,024] f32 rows over 17 segments, the
+    last the padding graph's ~102k rows (the backward of a gathered [E, D]
+    row in the training bucket), ids shuffled: the card repeats bit for bit
+    and gives the CPU's bits, as both add each chunk's rows, then each
+    segment's chunk sums, one after another.  1-D data (the loss's sums)
+    repeats too, but the card adds a 1-D chunk in a tree (CUB's segmented
+    reduce), so its last bits differ from the CPU's."""
+    from evi_rag_tpu_torch.ops.segment import segment_sum
+
+    gen = torch.Generator().manual_seed(11)
+    e, g = 131_072, 17
+    real = torch.randint(1_500, 2_100, (g - 1,), generator=gen)
+    ids = torch.repeat_interleave(torch.arange(g), torch.cat([real, (e - real.sum()).reshape(1)]))
+    ids = ids[torch.randperm(e, generator=gen)]
+    x = torch.randn((e, width) if width else (e,), generator=gen)
+    runs = [segment_sum(x.to(cuda), ids.to(cuda), g) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    if width:
+        assert torch.equal(runs[0].cpu(), segment_sum(x, ids, g))
+    else:
+        torch.testing.assert_close(runs[0].cpu(), segment_sum(x, ids, g), rtol=1e-5, atol=1e-4)
+
+
 def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """|a - b| in bf16 ulps of the larger of |a|, |b| and 1/32 of b's RMS:
     below that floor two f32 sums of thousands of terms that cancel may

@@ -201,7 +201,7 @@ def test_serve_split_counts_routes_by_the_grouping_rule(small_ds, bundle, monkey
     for route, w in want.items():
         assert (c[f"serve.edges.{route}"], c[f"serve.slots.{route}"]) == (w["edges"], w["slots"]), route
     assert set(c) == {f"serve.{n}.{r}" for n in ("edges", "slots") for r in ("kernel", "plain")} \
-        | {"nnfn.dense_split.f32"}
+        | {"nnfn.dense_split.f32", "segment.sum.chunks"}  # DDE's sums count their chunks
     assert c["nnfn.dense_split.f32"] == 2 * want["plain"]["groups"]  # the plain scorer's two views, off the card
     spans = tot["spans"]
     for name in ("serve.setup", "serve.plan", "serve.pack", "serve.dispatch", "serve.stage", "serve.drain"):
@@ -232,6 +232,7 @@ def test_serve_split_f32_counts_every_group_plain(small_ds, bundle):
         _serve(bundle, small_ds, dtype=torch.float32)
     c = profiling.totals()["counters"]
     groups = -(-len(samples) // GROUP)
+    assert c.pop("segment.sum.chunks") > 0  # DDE's sums
     assert c == {"serve.edges.plain": sum(s.edge_index.shape[1] for s in samples), "serve.slots.plain": slots,
                  "nnfn.dense_split.f32": 2 * groups}
 

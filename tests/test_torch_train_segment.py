@@ -5,6 +5,12 @@ segment last) go through ``evi_rag_tpu.ops.segment`` and the port's
 ``ops/segment.py``.  Values at f32 rtol 1e-4 / atol 1e-5; gradients of the
 differentiable ones (sum, mean, logsumexp, softmax) finite and at the same
 tolerance; argmax ids and integer min exact.
+
+The sum's two passes over chunks of ``CHUNK_ROWS`` rows, on segments of up
+to ten chunks and a padding segment last, as the training bucket has them:
+a segment of at most ``CHUNK_ROWS`` rows bit for bit one
+``torch.segment_reduce`` pass, a longer one at f32 tolerance of a float64
+sum, repeats bit for bit, gradients exact.
 """
 
 import jax
@@ -16,9 +22,12 @@ import torch
 from evi_rag_tpu.ops import segment as jseg
 from evi_rag_tpu_torch.ops import segment as tseg
 
+from evi_rag_tpu_torch.utils import profiling
+
 from _torch_train_common import F32
 
 G, E = 6, 48
+C = tseg.CHUNK_ROWS
 
 
 def _inputs(seed, width=None):
@@ -105,4 +114,71 @@ def test_gather_rows_matches_jax_take_and_its_gradient():
     out = tseg.gather_rows(xt, torch.from_numpy(idx))
     (out * torch.from_numpy(w)).sum().backward()
     np.testing.assert_array_equal(out.detach().numpy(), x[idx])
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgrad), **F32)
+
+
+# Segment lengths in sorted order: short ones, one empty, one of exactly C
+# rows, three longer, and the padding segment of 10 C + 7 rows last.
+CHUNK_LENGTHS = [5, 0, C, C + 1, 40, 3 * C + 2, 10 * C + 7]
+
+
+def _chunk_inputs(width, masked):
+    rng = np.random.default_rng(7)
+    n = sum(CHUNK_LENGTHS)
+    data = rng.normal(size=(n,) if width is None else (n, width)).astype(np.float32)
+    ids = np.repeat(np.arange(len(CHUNK_LENGTHS)), CHUNK_LENGTHS).astype(np.int32)
+    perm = rng.permutation(n)  # unsorted ids, as gather_rows' indices come
+    mask = np.ones(n, bool)
+    if masked:
+        mask = rng.random(n) < 0.8
+        mask[ids == 4] = False  # a fully masked segment
+    return data[perm], ids[perm], mask[perm]
+
+
+@pytest.mark.parametrize("width", [None, 3])
+@pytest.mark.parametrize("masked", [False, True])
+def test_chunked_sum_orders_and_gradients(width, masked):
+    data, ids, mask = _chunk_inputs(width, masked)
+    g = len(CHUNK_LENGTHS)
+    x, tids, tmask = torch.from_numpy(data), torch.from_numpy(ids), torch.from_numpy(mask) if masked else None
+    profiling.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = tseg.segment_sum(x, tids, g, mask=tmask)
+    k = -(-len(ids) // C) + g + 1
+    assert profiling.totals()["counters"] == {"segment.sum.chunks": k}
+    _, layout = tseg.segment_layout(tids, g, mask=tmask)
+    assert layout.chunk_lengths.shape == (k,) and int(layout.chunk_counts.sum()) == k
+    assert int(layout.chunk_lengths.max()) <= C and int(layout.chunk_lengths.sum()) == len(ids)
+    spare = layout.chunk_counts - (layout.lengths + C - 1) // C  # empty chunks: at most one a segment
+    assert int(spare.min()) == 0 and int(spare.max()) == 1
+
+    valid = np.sort(ids[mask], kind="stable")
+    lengths = np.bincount(valid, minlength=g)
+    rows = data[np.argsort(np.where(mask, ids, g), kind="stable")][: len(valid)]
+    one_pass = torch.segment_reduce(torch.from_numpy(rows), "sum", lengths=torch.from_numpy(lengths), axis=0)
+    short = torch.from_numpy(lengths <= C)
+    assert torch.equal(got[short], one_pass[short])
+    assert (lengths > C).sum() >= 2
+    want = np.stack([rows[e - n:e].astype(np.float64).sum(0) for n, e in zip(lengths, np.cumsum(lengths))])
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+    assert torch.equal(got, tseg.segment_sum(x, tids, g, mask=tmask))
+    if masked:
+        assert (got[4] == 0).all()
+
+    w = torch.from_numpy(np.random.default_rng(8).normal(size=got.shape).astype(np.float32))
+    xg = x.clone().requires_grad_(True)
+    (tseg.segment_sum(xg, tids, g, mask=tmask) * w).sum().backward()
+    keep = torch.from_numpy(mask).reshape((-1,) + (1,) * (x.ndim - 1))
+    assert torch.equal(xg.grad, torch.where(keep, w[tids.long()], torch.zeros(())))
+
+
+@pytest.mark.parametrize("width", [1, 3])
+def test_gather_rows_gradient_over_a_long_padding_segment_matches_jax(width):
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(7, width)).astype(np.float32)
+    idx = np.concatenate([rng.integers(0, 6, size=300), np.full(10 * C + 7, 6)]).astype(np.int32)
+    w = rng.normal(size=(len(idx), width)).astype(np.float32)
+    jgrad = jax.grad(lambda a: jnp.sum(a[jnp.asarray(idx)] * w))(jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    (tseg.gather_rows(xt, torch.from_numpy(idx)) * torch.from_numpy(w)).sum().backward()
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgrad), **F32)
