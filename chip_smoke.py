@@ -203,6 +203,27 @@ debug. ``experiment=debug`` (``extras.deterministic`` and
    ``chiprun_out/bench_torch_details.json``.  Each phase's wall seconds are
    printed as ``[wall]`` lines.
 
+Phase 14 (``phase_kda``): the KDA recurrence kernel (``ops/kda.py::scan``,
+``csrc/kda_recurrence.cu``) at the ``kimi_linear.reason_long`` cell's
+shapes, 32 heads of 128 with Kimi-Linear-48B-A3B's decays (exp(A_log) ~
+U(1, 16), softplus(dt_bias) ~ U(0.001, 0.1)): a prefill chunk of runs of
+``KDA_PREFILL`` tokens (3 x 9,000, the window mix's shortest, one token
+and a pad) from empty states, and a decode step of ``KDA_DECODE`` runs of
+one token from random states in shuffled cache rows.  Its outputs and f32
+states are held to the plain route (``scan_plain``) on the same inputs
+(``KDA_OUT_TOL`` / ``KDA_STATE_TOL``, relative Frobenius error a sequence;
+the conv states exactly) and timed against it and against the bound of
+the bytes a fused kernel must move (``benchmarks/kimi_counts.py``'s
+``kda_bound_s``; ``bound_ms_f32`` puts its operations at the f32 peak, the
+kernel's own arithmetic).  Then the main path: ``LocalLLM.generate`` of a
+small Kimi-Linear with heads of 128 on the card, its launches counted from
+0 just before (each prefill chunk and the first and the captured decode
+step launch once a KDA layer; replays launch nothing from the host), each
+kept chat's first KDA layer's state after its prompt held to that of the
+same prefill through the plain route.
+
+``python3 chip_smoke.py --kda`` runs only phase 14.
+
 ``python3 chip_smoke.py --quality`` runs only the WebQSP-scale chain of
 ``scripts/run_webqsp_synth_hw.sh`` on the card: ``testing.synthetic_rows``'
 WebQSP preset (2826 / 246 / 1628 questions) built with the hash encoder at
@@ -313,6 +334,13 @@ BUILT_RANK = 8192          # >= the largest bucket of the built split (edge cap 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+KDA_HEADS = 32                       # Kimi-Linear-48B-A3B's KDA heads (of ops/kda.py's DIM)
+KDA_PREFILL = (9000, 9000, 9000, 3600, 1, 0)  # the cell's window mix: k = 500 x 3, k = 200, one token, a pad
+KDA_DECODE = 128                     # the cell's decode batch
+KDA_OUT_TOL = 1e-2                   # outputs: a bf16 rounding apart (sums in another order)
+KDA_STATE_TOL = 1e-3                 # f32 states: sums in another order, a bf16 input flipped now and then
 
 
 def reset_launches() -> None:
@@ -3964,6 +3992,156 @@ def phase_bench(smi: str, pooled: dict) -> dict:
                 details={k: det[k] for k in bench.DETAIL_KEYS})
 
 
+def _kda_inputs(lengths, rows: int, gen, dev, state_std: float):
+    """Random inputs of ``ops/kda.py::scan`` at the model's scales: the raw
+    projections of a normed token through N(0, 0.02) weights (q, k, v, beta
+    ~ N(0, 1), the decay's low-rank pair ~ N(0, 0.22)), taps N(0, 0.25),
+    the decays of ``models/llm/kimi_linear.py``; states N(0, ``state_std``)."""
+    import numpy as np
+    import torch
+
+    from evi_rag_tpu_torch.ops import kda
+
+    h, d = KDA_HEADS, kda.DIM
+    P, n = h * d, int(sum(lengths))
+    rnd = lambda *shape, std=1.0: torch.randn(*shape, device=dev, generator=gen).mul_(std)  # noqa: E731
+    q, k, v = (rnd(n, P).to(torch.bfloat16) for _ in range(3))
+    f = rnd(n, P, std=0.22).to(torch.bfloat16)
+    b = rnd(n, h).to(torch.bfloat16)
+    taps = tuple(rnd(P, kda.TAPS, std=0.25).to(torch.bfloat16) for _ in range(3))
+    a_log = torch.rand(h, device=dev, generator=gen).mul_(15).add_(1).log_()
+    dt = torch.rand(P, device=dev, generator=gen).mul_(0.099).add_(0.001)
+    dt_bias = dt + torch.log(-torch.expm1(-dt))
+    state = rnd(rows, h, d, d, std=state_std)
+    conv = rnd(rows, kda.TAPS - 1, 3 * P).to(torch.bfloat16) if state_std else \
+        torch.zeros(rows, kda.TAPS - 1, 3 * P, dtype=torch.bfloat16, device=dev)
+    slots = torch.randperm(rows, device=dev, generator=gen)[:len(lengths)].int()
+    starts = torch.tensor(np.cumsum([0, *lengths[:-1]]), dtype=torch.int32, device=dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return (q, k, v, taps, f, b, a_log, dt_bias), state, conv, (slots, starts, lens)
+
+
+def phase_kda(smi: str) -> dict:
+    """Phase 14 (module docstring): the KDA kernel against the plain route
+    at the cell's shapes, timed, then the main path's launches."""
+    import torch
+
+    from benchmarks import kimi_counts
+    from evi_rag_tpu_torch.eval import local_llm
+    from evi_rag_tpu_torch.models.llm import kimi_linear
+    from evi_rag_tpu_torch.models.llm.config import KimiLinearConfig
+    from evi_rag_tpu_torch.ops import kda
+
+    dev = torch.device("cuda", 0)
+    published = json.loads((ROOT / "configs" / "reasoner" / "models" / "kimi_linear_48b_a3b.json").read_text())
+    gen = torch.Generator(device=dev).manual_seed(14)
+    scale = kda.DIM ** -0.5
+    out = {}
+    for label, lengths, rows, state_std in (("prefill", KDA_PREFILL, len(KDA_PREFILL) + 2, 0.0),
+                                            ("decode", (1,) * KDA_DECODE, KDA_DECODE, 0.1)):
+        args, state, conv, runs = _kda_inputs(list(lengths), rows, gen, dev, state_std)
+        got_state, got_conv = state.clone(), conv.clone()
+        got = kda.scan(*args, got_state, got_conv, *runs, scale)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want_state, want_conv = state.clone(), conv.clone()
+        want = kda.scan_plain(*args, want_state, want_conv, *runs, scale)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        out_err = state_err = 0.0
+        for slot, start, m in zip(*(r.tolist() for r in runs)):
+            if m:
+                o, w = got[start:start + m].float(), want[start:start + m].float()
+                out_err = max(out_err, float((o - w).norm() / w.norm()))
+                s, ws = got_state[slot], want_state[slot]
+                state_err = max(state_err, float(((s - ws).flatten(1).norm(dim=1) / ws.flatten(1).norm(dim=1)).max()))
+        conv_equal = bool(torch.equal(got_conv, want_conv))
+        if out_err > KDA_OUT_TOL or state_err > KDA_STATE_TOL or not conv_equal:
+            raise AssertionError(f"14 kda {label}: output error {out_err:.3g} (tol {KDA_OUT_TOL}), state error "
+                                 f"{state_err:.3g} (tol {KDA_STATE_TOL}), conv states equal {conv_equal}")
+        del want, want_state, want_conv
+        ms = cuda_ms(lambda: kda.scan(*args, state, conv, *runs, scale), 5)
+        tokens = sum(lengths)
+        counters = {f"kda.tokens.{label}": tokens, f"kda.states.{label}": sum(1 for m in lengths if m)}
+        bound_ms = kimi_counts.kda_bound_s(published, counters) * 1e3
+        ops_ms = tokens * kimi_counts.kda_flops_per_token(published) / PEAK_BF16_FLOPS * 1e3
+        bound_f32_ms = max(bound_ms, ops_ms * PEAK_BF16_FLOPS / PEAK_F32_FLOPS)
+        out[label] = dict(lengths=list(lengths) if label == "prefill" else f"{KDA_DECODE} x 1", out_err=out_err,
+                          state_err=state_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by="operations" if ops_ms >= bound_ms else "bytes", bound_ms_f32=bound_f32_ms)
+        log(f"[14 kda] {label} runs {out[label]['lengths']}: output error {out_err:.2e}, state error "
+            f"{state_err:.2e}, conv states equal; ms {ms:.3f} plain_ms {plain_ms:.1f} bound_ms {bound_ms:.3f} "
+            f"({out[label]['bound_by']}; bound/ms {bound_ms / ms:.3f}) bound_ms_f32 {bound_f32_ms:.3f}")
+        del args, state, conv, got, got_state, got_conv
+        torch.cuda.empty_cache()
+
+    # The main path: a small Kimi-Linear with heads of 128 through LocalLLM.generate.
+    small = dict(published, hidden_size=256, intermediate_size=512, moe_intermediate_size=128, num_hidden_layers=4,
+                 num_attention_heads=2, num_key_value_heads=2, kv_lora_rank=64, qk_nope_head_dim=32,
+                 qk_rope_head_dim=16, v_head_dim=32, num_experts=8, router_experts=16, num_experts_per_token=2,
+                 vocab_size=1024, model_max_length=4096,
+                 linear_attn_config=dict(published["linear_attn_config"], kda_layers=[1, 2, 3],
+                                         full_attn_layers=[4], num_heads=2, head_dim=kda.DIM))
+    cfg = KimiLinearConfig.from_dict(small)
+    llm = local_llm.LocalLLM(cfg, kimi_linear.init_weights(cfg, 14, dev), max_tokens=4, prefill_tokens=1024)
+    lens = [900, 600, 333, 90, 1]
+    prompts = [torch.randint(0, cfg.vocab_size, (m,), generator=torch.Generator().manual_seed(m)).numpy()
+               for m in lens]
+    keep = list(range(len(lens)))
+    chunks = len(local_llm.plan_chunks(lens, llm.prefill_tokens))
+    n_kda = len(cfg.kda_layers)
+    kda.scan.launches = 0      # the main path's run: counted from 0 just before, read just after
+    _, kept = llm.generate(prompts, keep)
+    torch.cuda.synchronize()
+    launches = kda.scan.launches
+    expected = (chunks + 2) * n_kda
+    llm.max_tokens = 1          # the same prefill through the plain route
+    scan = kda.scan
+    kimi_linear.kda_ops.scan = kda.scan_plain
+    try:
+        _, plain = llm.generate(prompts, keep)
+    finally:
+        kimi_linear.kda_ops.scan = scan
+    # The first KDA layer's states: its inputs are the same on both routes (a deeper layer's differ by the
+    # bf16 roundings that the outputs' f32 sums in another order flip now and then).
+    path_err = max(float(((g[0] - w[0]).flatten(1).norm(dim=1) / w[0].flatten(1).norm(dim=1)).max())
+                   for g, w in zip(kept.states, plain.states))
+    if launches != expected or path_err > KDA_STATE_TOL:
+        raise AssertionError(f"14 kda main path: {launches} launches for {chunks} prefill chunks and 2 decode "
+                             f"steps of {n_kda} KDA layers (want {expected}); state error {path_err:.3g}")
+    log(f"[14 kda] main path (LocalLLM.generate, {n_kda} KDA layers of 2 heads, prompts {lens}, {chunks} prefill "
+        f"chunks, 4 new tokens): {launches} launches; first KDA layer's kept states against the plain route's "
+        f"prefill {path_err:.2e}; "
+        f"{smi}")
+    out["main_path"] = dict(launches=launches, chunks=chunks, kda_layers=n_kda, state_err=path_err)
+    return out
+
+
+def kda_kernel_row(k: dict) -> dict:
+    """Phase 14's entry of the ``kernels`` line."""
+    pre, dec = k["prefill"], k["decode"]
+    return {
+        "name": "kda_scan_kernel",
+        "route": "cuda",
+        "source": "evi_rag_tpu_torch/csrc/kda_recurrence.cu",
+        "replaces": None,
+        "launches": k["main_path"]["launches"],
+        "max_abs_err": None,
+        "out_err": max(pre["out_err"], dec["out_err"]),
+        "state_err": max(pre["state_err"], dec["state_err"], k["main_path"]["state_err"]),
+        "ms": pre["ms"],
+        "plain_ms": pre["plain_ms"],
+        "bound_ms": pre["bound_ms"],
+        "bound_by": pre["bound_by"],
+        "bound_ms_f32": pre["bound_ms_f32"],
+        "library_ms": None,
+        "decode_ms": dec["ms"],
+        "decode_plain_ms": dec["plain_ms"],
+        "decode_bound_ms": dec["bound_ms"],
+        "shape": f"H={KDA_HEADS} d=128 prefill runs {list(KDA_PREFILL)}, decode {KDA_DECODE} x 1",
+    }
+
+
 def main() -> int:
     if not (ROOT / "evi_rag_tpu_torch" / "serving.py").is_file():
         print("chip_smoke: run from a checkout of the repository (evi_rag_tpu_torch/ missing)",
@@ -3981,6 +4159,12 @@ def main() -> int:
     if sys.argv[1:2] == ["--ablation"]:
         phase_device()
         phase_ablation(int(sys.argv[2]) if len(sys.argv) > 2 else 32768)
+        return 0
+    if sys.argv[1:2] == ["--kda"]:
+        smi = phase_device()
+        k = phase_kda(smi)
+        log(json.dumps({"kernels": [kda_kernel_row(k)]}))
+        log(smi)
         return 0
     if sys.argv[1:2] == ["--crossover"]:
         phase_crossover(phase_device())
@@ -4036,6 +4220,7 @@ def main() -> int:
     del serve_ctx
     quality = timed("12b quality", phase_quality, smi)
     port_bench = timed("13 bench", phase_bench, smi, pooled)
+    kda_rows = timed("14 kda", phase_kda, smi)
 
     rep = next(r for r in rows if r["M"] == REPORT_M)
     kernels = [{
@@ -4087,7 +4272,8 @@ def main() -> int:
             "tflops_bound_count": pooled["tflops"][name][1],
             "shape": f"B={POOLED_B} M={POOLED_M} D={D} H={H} S={S} k={K}",
         })
-    details = dict(nvidia_smi=smi, build_s=build_s, kernel=rows, serve=serve, cli=cli_metrics,
+    kernels.append(kda_kernel_row(kda_rows))
+    details = dict(nvidia_smi=smi, build_s=build_s, kernel=rows, kda=kda_rows, serve=serve, cli=cli_metrics,
                    pooled=pooled, train=train, gflownet=gflownet, debug=debug, native_bfs=native_bfs, build=build, sweep=sweep,
                    multi=multi, route=route, quality=quality, eval_gflownet_card_vs_cpu=eval_gfn,
                    fit_gflownet_card_vs_cpu=fit_gfn, bench=port_bench, kernels=kernels,

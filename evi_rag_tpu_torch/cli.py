@@ -983,8 +983,9 @@ def task_reasoner(cfg: dict, *, run_dir: pathlib.Path) -> dict[str, Any]:
     (``prompt_source=paths``: ``eval_gflownet`` rollouts or ``eval_bfs``
     chains), asks the chat backend, and writes
     ``reasoner/<split>.jsonl`` and its ``.metrics.json`` under
-    ``eval.artifacts_dir``.  Host only, but for ``reasoner=local_moonlight``
-    (the in-process model, on ``device``)."""
+    ``eval.artifacts_dir``.  Host only, but for the ``local`` backend
+    (``reasoner=local_moonlight`` or ``local_kimi_linear``: the in-process
+    model, on ``device``)."""
     from evi_rag_tpu_torch.eval.artifacts import load_agent_store
     from evi_rag_tpu_torch.eval.llm_client import LLMConfig, init_llm
     from evi_rag_tpu_torch.eval.reasoner import ReasonerSettings, build_triplet_records, run_reasoner

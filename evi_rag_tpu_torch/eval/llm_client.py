@@ -9,10 +9,11 @@ Copy of ``evi_rag_tpu/eval/llm_client.py`` (the reference ``init_llm`` /
 * ``vllm``    -- GPU serving (``tensor_parallel_size`` passthrough);
   import-gated;
 * ``mock``    -- deterministic canned-response backend for tests/CI;
-* ``local``   -- the port's own: Moonlight-16B-A3B in this process
-  (``eval/local_llm.py``), built from ``model_file`` (the published
-  ``config.json`` keys) and ``seed`` on ``device``; it takes a batch of
-  chats at once (``.batch``, up to ``max_batch``).
+* ``local``   -- the port's own: Moonlight-16B-A3B or Kimi-Linear-48B-A3B in
+  this process (``eval/local_llm.py``, the model picked by the file's
+  ``model_type``), built from ``model_file`` (the published ``config.json``
+  keys) and ``seed`` on ``device``; it takes a batch of chats at once
+  (``.batch``, up to ``max_batch``).
 
 No backend falls back to another.  ``backend="auto"`` resolves like the
 reference: "gpt" in the model name => openai, else vllm.  Rate-limit retry
@@ -66,7 +67,7 @@ def init_llm(cfg: LLMConfig) -> ChatBackend:
         from evi_rag_tpu_torch.utils.device import resolve_device
 
         if not cfg.model_file:
-            raise ValueError("backend='local' needs model_file (a deepseek_v3 config.json)")
+            raise ValueError("backend='local' needs model_file (a deepseek_v3 or kimi_linear config.json)")
         return LocalLLM.from_file(cfg.model_file, seed=cfg.seed, device=resolve_device(cfg.device),
                                   max_tokens=cfg.max_tokens)
 

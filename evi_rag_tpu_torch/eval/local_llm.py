@@ -1,14 +1,19 @@
 """The reasoner's in-process language model: a batched engine over
-``models/llm/moonlight.py`` and the ``local`` chat backend built on it.
+``models/llm/moonlight.py`` (Moonlight-16B-A3B, ``deepseek_v3``) or
+``models/llm/kimi_linear.py`` (Kimi-Linear-48B-A3B, ``kimi_linear``), picked
+by the model file's ``model_type``, and the ``local`` chat backend built on
+it.
 
 ``LocalLLM.batch(conversations)`` renders each chat into text, tokenises
-it, prefills the prompts into a latent cache in chunks of whole sequences
-that fit ``prefill_tokens`` (the longest first, each chunk one right-padded
-block for attention and its real tokens alone for everything else), then
-decodes greedily ``max_tokens`` new tokens for every sequence, one batched
-step at a time through the cache (the absorbed form; on a card each step
-after the first replays a CUDA graph of it).  Random weights never
-emit an end token, so no sequence stops early.
+it, prefills the prompts into the model's cache (Moonlight: the latent
+rows of every layer; Kimi-Linear: the latent rows of its MLA layers beside
+the recurrent and conv states of its KDA layers) in chunks of whole
+sequences that fit ``prefill_tokens`` (the longest first, each chunk one
+right-padded block for attention and its real tokens alone for everything
+else), then decodes greedily ``max_tokens`` new tokens for every sequence,
+one batched step at a time through the cache (the absorbed form; on a card
+each step after the first replays a CUDA graph of it).  Random weights
+never emit an end token, so no sequence stops early.
 
 The tokenizer is a stand-in until the model's own files are in the
 repository: one id per 4 bytes of UTF-8 (``count_tokens``' offline rate),
@@ -22,10 +27,17 @@ the host); ``reason.sequences``, ``reason.tokens.prefill`` (prompt tokens),
 ``reason.tokens.decode`` (tokens through decode steps),
 ``reason.ctx.prefill`` (causal (query, key) pairs of the prompts, per
 layer), ``reason.ctx.decode`` (cache rows read by decode steps, per layer),
-``moe.experts.touched`` (experts with a token, summed over the MoE layers
-of each decode step), ``moe.tokens.max`` and ``moe.tokens.routed`` (the
-busiest expert's tokens and all routed (token, expert) pairs, summed over
-the MoE layers of each prefill chunk).
+``moe.experts.touched`` (held experts with a token, summed over the MoE
+layers of each decode step), ``moe.tokens.max`` and ``moe.tokens.routed``
+(the busiest held expert's tokens and the (token, expert) pairs routed to
+held experts, summed over the MoE layers of each prefill chunk), with a
+share of the experts ``moe.tokens.routed.decode`` (the pairs routed to held
+experts, summed over the MoE layers of each decode step); with KDA
+layers ``kda.tokens.prefill`` / ``kda.tokens.decode`` (tokens x KDA layers
+through the recurrence) and ``kda.states.prefill`` / ``kda.states.decode``
+(sequence x layer state loads, each followed by one store).  Every count is
+a host integer; only the ``moe.*`` counts wait on the card, and only under
+a profiler.
 """
 
 from __future__ import annotations
@@ -38,8 +50,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from evi_rag_tpu_torch.models.llm import moonlight
-from evi_rag_tpu_torch.models.llm.config import MoonlightConfig
+from evi_rag_tpu_torch.models.llm import module_of, moonlight, read_model_file
+from evi_rag_tpu_torch.models.llm.config import KimiLinearConfig, MoonlightConfig
 from evi_rag_tpu_torch.utils import profiling
 
 Message = dict[str, str]
@@ -84,15 +96,32 @@ def plan_chunks(lengths: Sequence[int], budget: int) -> list[list[int]]:
     return chunks
 
 
+def chunk_inputs(prompts: Sequence[np.ndarray], chunk: Sequence[int], dev):
+    """A prefill chunk's arguments: (flat ids [N], their sequences [N] and
+    positions [N], their places in the right-padded block [N], the block's
+    sequences and width, each sequence's last token [b])."""
+    cl = [len(prompts[i]) for i in chunk]
+    lc = max(cl)
+    put = lambda x: torch.as_tensor(x).to(dev, non_blocking=True)  # noqa: E731
+    return (put(np.concatenate([prompts[i] for i in chunk])),
+            put(np.repeat(np.asarray(chunk, dtype=np.int64), cl)),
+            put(np.concatenate([np.arange(m) for m in cl])),
+            put(np.concatenate([j * lc + np.arange(m) for j, m in enumerate(cl)])),
+            len(chunk), lc, put(np.cumsum(cl) - 1))
+
+
 @dataclasses.dataclass
 class Kept:
     """What ``generate`` keeps of the sequences asked for, in their order:
     ``logits`` [S, n, V] (f32) at the last prompt position and each decode
     step; ``routes`` [S] of [MoE layers, prompt + n - 1, k], the experts
-    each position chose in each MoE layer."""
+    each position chose in each MoE layer; ``states`` [S] of each one's KDA
+    states after its prompt [KDA layers, H, d, d] (f32; None without KDA
+    layers)."""
 
     logits: torch.Tensor
     routes: list
+    states: list | None = None
 
 
 class _Decoder:
@@ -103,14 +132,14 @@ class _Decoder:
     stream and the rest replay a CUDA graph of it captured then: a step is
     ~2k small operations, whose launches would hold the card back."""
 
-    def __init__(self, w, cfg: MoonlightConfig, first: torch.Tensor, pos: torch.Tensor, cache: torch.Tensor):
-        self.w, self.cfg, self.cache = w, cfg, cache
+    def __init__(self, model, w, cfg, first: torch.Tensor, pos: torch.Tensor, cache):
+        self.model, self.w, self.cfg, self.cache = model, w, cfg, cache
         self.cur, self.pos = first.clone(), pos
         self.graph = self.out = None
 
     def _step(self):
         rec = moonlight.Record(load=True, routes=True)
-        logits = moonlight.decode(self.w, self.cfg, self.cur, self.pos, self.cache, rec)
+        logits = self.model.decode(self.w, self.cfg, self.cur, self.pos, self.cache, rec)
         self.cur.copy_(logits.argmax(-1))
         self.pos.add_(1)
         return logits, rec
@@ -139,17 +168,17 @@ class LocalLLM:
     """A chat backend that runs the model in this process (``init_llm``
     with ``backend="local"``)."""
 
-    def __init__(self, cfg: MoonlightConfig, weights: dict[str, torch.Tensor], *, max_tokens: int,
-                 max_batch: int = 48, prefill_tokens: int = 32768):
-        self.cfg, self.weights = cfg, weights
+    def __init__(self, cfg: MoonlightConfig | KimiLinearConfig, weights: dict[str, torch.Tensor], *,
+                 max_tokens: int, max_batch: int = 48, prefill_tokens: int = 32768):
+        self.cfg, self.weights, self.model = cfg, weights, module_of(cfg)
         self.device = weights["embed"].device
         self.tokenizer = StandInTokenizer(cfg.vocab_size)
         self.max_tokens, self.max_batch, self.prefill_tokens = int(max_tokens), int(max_batch), int(prefill_tokens)
 
     @classmethod
     def from_config(cls, config: dict, *, seed: int, device, dtype: str = "bfloat16", **kw) -> "LocalLLM":
-        cfg = MoonlightConfig.from_dict(config)
-        return cls(cfg, moonlight.init_weights(cfg, seed, device, getattr(torch, dtype)), **kw)
+        cfg = read_model_file(config)
+        return cls(cfg, module_of(cfg).init_weights(cfg, seed, device, getattr(torch, dtype)), **kw)
 
     @classmethod
     def from_file(cls, path: str | pathlib.Path, **kw) -> "LocalLLM":
@@ -174,46 +203,48 @@ class LocalLLM:
     def generate(self, prompts: Sequence[np.ndarray], keep: Sequence[int] = ()):
         """Greedy ``max_tokens`` new ids for each prompt: (ids [B, n] on the
         host, ``Kept`` of the sequences ``keep`` or None)."""
-        cfg, w, dev, n = self.cfg, self.weights, self.device, self.max_tokens
+        cfg, w, dev, n, model = self.cfg, self.weights, self.device, self.max_tokens, self.model
         lens = [len(p) for p in prompts]
         bsz, t_max = len(prompts), max(lens) + n
-        if min(lens) < 1 or t_max > cfg.max_position_embeddings:
+        if min(lens) < 1 or t_max > cfg.max_positions:
             raise ValueError(f"prompts of {min(lens)}-{max(lens)} tokens and {n} new ones do not fit "
-                             f"{cfg.max_position_embeddings} positions")
-        # Zeros: rows past a sequence's end are masked, and a masked row must
-        # not hold a NaN for the probabilities' zeros to meet.
-        cache = torch.zeros(cfg.num_hidden_layers, bsz, t_max, cfg.latent_dim, dtype=w["embed"].dtype, device=dev)
+                             f"{cfg.max_positions} positions")
+        cache = model.new_cache(cfg, bsz, t_max, w["embed"].dtype, dev)
+        n_kda = len(getattr(cfg, "kda_layers", ()))
         out = torch.empty(bsz, n, dtype=torch.long, device=dev)
-        kept = Kept(torch.empty(len(keep), n, cfg.vocab_size, device=dev), [[] for _ in keep]) if len(keep) else None
+        kept = None
+        if len(keep):
+            kept = Kept(torch.empty(len(keep), n, cfg.vocab_size, device=dev), [[] for _ in keep],
+                        [None] * len(keep) if n_kda else None)
         where = {s: j for j, s in enumerate(keep)}
-        moe_layers = cfg.num_hidden_layers - cfg.first_k_dense_replace
+        held = cfg.n_routed_experts
         for chunk in plan_chunks(lens, self.prefill_tokens):
             with profiling.span("reason.prefill"):
                 mine = [(j, where[s]) for j, s in enumerate(chunk) if s in where]
                 rec = moonlight.Record(load=profiling.enabled(), routes=bool(mine))
                 cl = [lens[i] for i in chunk]
-                lc = cl[0]
-                ids = torch.from_numpy(np.concatenate([prompts[i] for i in chunk])).to(dev, non_blocking=True)
-                seq = torch.repeat_interleave(torch.tensor(chunk), torch.tensor(cl)).to(dev, non_blocking=True)
-                pos = torch.from_numpy(np.concatenate([np.arange(m) for m in cl])).to(dev, non_blocking=True)
-                pad = torch.from_numpy(np.concatenate([j * lc + np.arange(m) for j, m in enumerate(cl)])).to(
-                    dev, non_blocking=True)
-                last = torch.from_numpy(np.cumsum(cl) - 1).to(dev, non_blocking=True)
-                logits = moonlight.prefill(w, cfg, ids, seq, pos, pad, len(chunk), lc, cache, last, rec)
+                ids, seq, pos, pad, b, lc, last = chunk_inputs(prompts, chunk, dev)
+                logits = model.prefill(w, cfg, ids, seq, pos, pad, b, lc, cache, last, rec)
                 out[torch.tensor(chunk, device=dev), 0] = logits.argmax(-1)
                 if mine:
                     routes, starts = torch.stack(rec.routes), np.cumsum([0] + cl)
                     for j, k in mine:
                         kept.logits[k, 0] = logits[j].float()
                         kept.routes[k].append(routes[:, starts[j]:starts[j + 1]])
+                        if kept.states is not None:
+                            kept.states[k] = cache.state[:, chunk[j]].clone()
                 if rec.load is not None:
-                    stacked = torch.stack(rec.load)
-                    profiling.count("moe.tokens.max", int(stacked.max(1).values.sum()))
-                    profiling.count("moe.tokens.routed", sum(cl) * cfg.num_experts_per_tok * moe_layers)
+                    load = torch.stack(rec.load)[:, :held]
+                    busiest, routed = torch.stack((load.max(1).values.sum(), load.sum())).tolist()
+                    profiling.count("moe.tokens.max", busiest)
+                    profiling.count("moe.tokens.routed", routed)
                     profiling.count("reason.tokens.prefill", sum(cl))
                     profiling.count("reason.ctx.prefill", sum(m * (m + 1) // 2 for m in cl))
+                    if n_kda:
+                        profiling.count("kda.tokens.prefill", sum(cl) * n_kda)
+                        profiling.count("kda.states.prefill", len(cl) * n_kda)
         profiling.count("reason.sequences", bsz)
-        step = _Decoder(w, cfg, out[:, 0], torch.tensor(lens, device=dev), cache)
+        step = _Decoder(model, w, cfg, out[:, 0], torch.tensor(lens, device=dev), cache)
         host = None
         kept_rows = torch.tensor(list(keep), device=dev, dtype=torch.long) if len(keep) else None
         if dev.type == "cuda":
@@ -228,9 +259,16 @@ class LocalLLM:
                     for k in range(len(keep)):
                         kept.routes[k].append(routes[:, k:k + 1])
                 if profiling.enabled():
-                    profiling.count("moe.experts.touched", int((torch.stack(rec.load) > 0).sum()))
+                    load = torch.stack(rec.load)[:, :held]
+                    touched, routed = torch.stack(((load > 0).sum(), load.sum())).tolist()
+                    profiling.count("moe.experts.touched", touched)
+                    if held < cfg.router_experts:
+                        profiling.count("moe.tokens.routed.decode", routed)
                     profiling.count("reason.tokens.decode", bsz)
                     profiling.count("reason.ctx.decode", sum(lens) + bsz * t)
+                    if n_kda:
+                        profiling.count("kda.tokens.decode", bsz * n_kda)
+                        profiling.count("kda.states.decode", bsz * n_kda)
                 if t == n - 1:
                     host = out.cpu().numpy()
         if host is None:

@@ -26,7 +26,15 @@ A cache row is c and the rope key: (512 + 64) values a token and layer.
 
 Routed experts run as grouped products: the (token, expert) pairs sorted by
 expert, one ``torch._grouped_mm`` for the fused gate and up projections and
-one for the down projection, per layer.
+one for the down projection, per layer.  The expert layer is told which
+experts it holds (``cfg.n_routed_experts`` of the ``cfg.router_experts`` the
+router scores, ids from 0): it routes over all of them and computes the part
+of the result its own experts give (Moonlight holds all 64).
+
+The attention, router and expert functions serve Kimi-Linear's MLA and MoE
+layers too (``models/llm/kimi_linear.py``), whose MLA has no rotation: given
+``cos`` / ``sin`` None, the rope parts of q and of the cache row pass
+unrotated.
 
 Weights (``init_weights``) live in one dict, [out, in] like ``nn.Linear``:
 ``embed`` [V, D], ``norm`` [D], ``lm_head`` [V, D]; per layer ``i`` under
@@ -116,6 +124,13 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return x * cos + torch.cat((-x2, x1), -1) * sin
 
 
+def new_cache(cfg: MoonlightConfig, bsz: int, t_max: int, dtype, device) -> torch.Tensor:
+    """The latent cache [layers, B, T, r + dr] of a batch.  Zeros: rows past
+    a sequence's end are masked, and a masked row must not hold a NaN for
+    the probabilities' zeros to meet."""
+    return torch.zeros(cfg.num_hidden_layers, bsz, t_max, cfg.latent_dim, dtype=dtype, device=device)
+
+
 def mlp(x: torch.Tensor, gate_up: torch.Tensor, down: torch.Tensor) -> torch.Tensor:
     gu = x @ gate_up.t()
     g, u = gu.chunk(2, -1)
@@ -144,53 +159,66 @@ class Record:
 
 
 def moe(x: torch.Tensor, w: dict[str, torch.Tensor], p: str, cfg: MoonlightConfig,
-        rec: Record | None = None) -> torch.Tensor:
-    """Shared experts plus the routed experts of flat tokens ``x`` [N, D]:
-    pairs sorted by expert, two grouped products, the routing weight applied
-    between them (the down projection is linear); each token's k results
-    summed in a fixed order (f32 sums).  Nothing here waits on the card."""
-    n, k = x.shape[0], cfg.num_experts_per_tok
+        rec: Record | None = None, static: bool = False) -> torch.Tensor:
+    """Shared experts plus the routed experts held here of flat tokens ``x``
+    [N, D]: pairs sorted by expert, two grouped products, the routing weight
+    applied between them (the down projection is linear); each token's k
+    results summed in a fixed order (f32 sums), a pair routed to an expert
+    not held adding nothing.  With every expert held nothing here waits on
+    the card.  With a share, the held pairs (sorted first) are counted on
+    the host, one wait a layer, and only they are gathered; ``static``
+    (a step captured in a CUDA graph) gathers every pair instead and zeroes
+    those past the held ones."""
+    n, k, held = x.shape[0], cfg.num_experts_per_tok, cfg.n_routed_experts
     ids, wts = route(x, w, p, cfg)
     flat = ids.reshape(-1)
     order = torch.argsort(flat, stable=True)
-    counts = torch.zeros(cfg.n_routed_experts, dtype=torch.long, device=x.device).scatter_add_(
+    counts = torch.zeros(cfg.router_experts, dtype=torch.long, device=x.device).scatter_add_(
         0, flat, torch.ones_like(flat))  # bincount would wait for the card to size its output
     if rec is not None and rec.load is not None:
         rec.load.append(counts)
     if rec is not None and rec.routes is not None:
         rec.routes.append(ids)
-    offs = torch.cumsum(counts, 0).to(torch.int32)
-    gu = torch._grouped_mm(x[order // k], w[p + "experts.gate_up"].transpose(-2, -1), offs=offs)
+    offs = torch.cumsum(counts[:held], 0).to(torch.int32)
+    share = held < cfg.router_experts
+    rows = order if not share or static else order[:int(offs[-1])]
+    gu = torch._grouped_mm(x[rows // k], w[p + "experts.gate_up"].transpose(-2, -1), offs=offs)
     g, u = gu.chunk(2, -1)
-    act = F.silu(g) * u * wts.reshape(-1)[order, None].to(x.dtype)
+    act = F.silu(g) * u * wts.reshape(-1)[rows, None].to(x.dtype)
     ys = torch._grouped_mm(act, w[p + "experts.down"].transpose(-2, -1), offs=offs)
-    y = torch.empty_like(ys)
-    y[order] = ys
+    if share and static:  # rows past the last offset hold whatever the products left there
+        ys = torch.where(torch.arange(n * k, device=x.device)[:, None] < offs[-1], ys, 0)
+    y = ys.new_zeros(n * k, ys.shape[1]) if share and not static else torch.empty_like(ys)
+    y[rows] = ys
     return mlp(x, w[p + "shared.gate_up"], w[p + "shared.down"]) + y.view(n, k, -1).sum(1)
 
 
-def ffn(x: torch.Tensor, w: dict[str, torch.Tensor], i: int, cfg: MoonlightConfig, rec: Record | None):
+def ffn(x: torch.Tensor, w: dict[str, torch.Tensor], i: int, cfg: MoonlightConfig, rec: Record | None,
+        static: bool = False):
     p = f"layers.{i}."
     if cfg.is_moe(i):
-        return moe(x, w, p, cfg, rec)
+        return moe(x, w, p, cfg, rec, static)
     return mlp(x, w[p + "gate_up"], w[p + "down"])
 
 
 def latent(x: torch.Tensor, w: dict[str, torch.Tensor], p: str, cfg: MoonlightConfig,
            cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """Cache rows [N, r + dr] of normed tokens ``x``: the normalised latent
-    and the rope key at the tokens' positions."""
+    and the rope key at the tokens' positions (unrotated, ``cos`` None)."""
     r = cfg.kv_lora_rank
     kv = x @ w[p + "kv_a"].t()
     c = rms_norm(kv[:, :r], w[p + "kv_norm"], cfg.rms_norm_eps)
-    return torch.cat((c, apply_rope(kv[:, r:], cos, sin).to(x.dtype)), -1)
+    return torch.cat((c, kv[:, r:] if cos is None else apply_rope(kv[:, r:], cos, sin).to(x.dtype)), -1)
 
 
 def queries(x: torch.Tensor, w: dict[str, torch.Tensor], p: str, cfg: MoonlightConfig,
             cos: torch.Tensor, sin: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """(q_nope [N, H, dn], q_rope [N, H, dr]) of normed tokens ``x``."""
+    """(q_nope [N, H, dn], q_rope [N, H, dr]) of normed tokens ``x``
+    (q_rope unrotated, ``cos`` None)."""
     h, dn = cfg.num_attention_heads, cfg.qk_nope_head_dim
     q = (x @ w[p + "q_proj"].t()).view(-1, h, cfg.qk_head_dim)
+    if cos is None:
+        return q[..., :dn], q[..., dn:]
     return q[..., :dn], apply_rope(q[..., dn:], cos[:, None], sin[:, None]).to(x.dtype)
 
 
@@ -270,5 +298,5 @@ def decode(w, cfg: MoonlightConfig, tokens: torch.Tensor, pos: torch.Tensor, cac
         p = f"layers.{i}."
         x = x + attend_absorbed(rms_norm(x, w[p + "input_norm"], cfg.rms_norm_eps), w, p, cfg, cos, sin,
                                 cache[i], slot, masked)
-        x = x + ffn(rms_norm(x, w[p + "post_norm"], cfg.rms_norm_eps), w, i, cfg, rec)
+        x = x + ffn(rms_norm(x, w[p + "post_norm"], cfg.rms_norm_eps), w, i, cfg, rec, static=True)
     return rms_norm(x, w["norm"], cfg.rms_norm_eps) @ w["lm_head"].t()
